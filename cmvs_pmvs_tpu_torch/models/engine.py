@@ -1,0 +1,384 @@
+"""PMVS engine orchestration: the CFindMatch equivalent.
+
+Counterpart of cmvs_pmvs_tpu/models/engine.py (reference
+findMatch.cpp:187-220): detect, seed once, then `expand_iters` rounds of
+{expand waves to a fixpoint, the four filters} with the NCC thresholds
+relaxed by 0.05 per round, then write .patch/.ply/.pset. The wave loop
+runs in Python; all state lives in fixed-capacity tensors on one device
+(CUDA by default - the CPU only when passed explicitly).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import time
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from cmvs_pmvs_tpu.io.cameras import read_camera_txt
+from cmvs_pmvs_tpu.io.images import find_image_path, load_image, \
+    load_pgm_mask
+from cmvs_pmvs_tpu.utils.options import PMVSOptions, build_visdata
+
+from ..device import resolve_device, tree_to
+from ..geom.cameras import CameraSet, build_camera_set, project
+from ..image.pyramid import PyramidSet, build_pyramids, set_edge
+from ..image.sample import bilinear_color
+from ..ops.detect import detect_features
+from ..utils.trace import Tracer
+from .config import EngineConfig, Thresholds
+from .expand import expand_commit, expand_discover
+from .filter import refresh_visibility, run_filters
+from .grid import GridState, empty_grid
+from .patches import PatchCloud, compact_cloud, empty_cloud
+from .seed import run_seed
+from .views import collect_images_all
+
+# Largest expansion refine batch per wave (reference engine.py:405):
+# candidates beyond it requeue their parents for the next wave.
+COMMIT_CAP = 98304
+
+
+@dataclass
+class SceneData:
+    """Loaded inputs of one PMVS problem."""
+
+    cams: CameraSet
+    pyr: PyramidSet
+    images: list
+    image_ids: list
+    visdata: torch.Tensor     # [N, N] bool
+    distances: torch.Tensor   # [N, N]
+
+
+def compute_distances(cams: CameraSet) -> np.ndarray:
+    """Pairwise view distances: normalized baseline + optical-axis angle
+    penalty (photoSetS.cpp:195-235), in float64 on the host."""
+    c = cams.center[:, :3].cpu().double().numpy()
+    d = np.linalg.norm(c[:, None] - c[None], axis=-1)
+    off = ~np.eye(len(c), dtype=bool)
+    ave = d[off].mean() if off.any() else 1.0
+    if ave == 0.0:
+        raise ValueError("All the optical centers are identical")
+    ax = cams.oaxis[:, :3].cpu().double().numpy()
+    margin = math.cos(10.0 * math.pi / 180.0)
+    return (d / ave + np.maximum(0.0, 1.0 - ax @ ax.T - margin)).astype(
+        np.float32)
+
+
+def load_scene(prefix: str, opt: PMVSOptions, device="cuda") -> SceneData:
+    """Read images/cameras of timages+oimages and build the pyramids
+    (CPhotoSetS::init, photoSetS.cpp:12-77; maxLevel = level + 3)."""
+    dev = resolve_device(device)
+    opt = opt.resolve_oimages(prefix)
+    ids = list(opt.timages) + list(opt.oimages)
+    images, masks, Ps = [], [], []
+    for img_id in ids:
+        path = find_image_path(os.path.join(prefix, "visualize"), img_id)
+        if path is None:
+            raise FileNotFoundError(
+                f"no image for id {img_id} under {prefix}/visualize")
+        images.append(load_image(path))
+        mpath = find_image_path(os.path.join(prefix, "masks"), img_id,
+                                exts=(".pgm", ".pbm", ".png"))
+        masks.append(load_pgm_mask(mpath) if mpath else None)
+        Ps.append(read_camera_txt(
+            os.path.join(prefix, "txt", "%08d.txt" % img_id)))
+    cams = build_camera_set(np.stack(Ps), device=dev)
+    any_mask = any(m is not None for m in masks)
+    pyr = build_pyramids(images, masks if any_mask else None,
+                         opt.level + 3, device=dev)
+    if opt.set_edge != 0.0:
+        pyr = set_edge(pyr, images, opt.set_edge)
+    n = len(ids)
+    vis = np.zeros((n, n), bool)
+    for y, row in enumerate(build_visdata(opt, prefix)):
+        vis[y, row] = True
+    return SceneData(cams=cams, pyr=pyr, images=images, image_ids=ids,
+                     visdata=torch.as_tensor(vis, device=dev),
+                     distances=torch.as_tensor(compute_distances(cams),
+                                               device=dev))
+
+
+class PMVSEngine:
+    """Dense reconstruction of one cluster (the pmvs3 binary)."""
+
+    def __init__(self, scene: SceneData, opt: PMVSOptions,
+                 p_cap: int = 200_000, log=print, tracer=None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.scene = replace(scene, cams=tree_to(scene.cams, self.device),
+                             pyr=tree_to(scene.pyr, self.device),
+                             visdata=scene.visdata.to(self.device),
+                             distances=scene.distances.to(self.device))
+        self.opt = opt
+        pyr = self.scene.pyr
+        level, csize = opt.level, opt.csize
+        w0 = int(pyr.widths[level].max())
+        h0 = int(pyr.heights[level].max())
+        gw = (w0 + csize - 1) // csize
+        gh = (h0 + csize - 1) // csize
+        bindexes = ()
+        if opt.use_bound:
+            if not getattr(opt, "prefix", None):
+                raise ValueError(
+                    "useBound is set but the options carry no prefix to "
+                    "locate bimages.dat (construct PMVSOptions with "
+                    "prefix=, or clear use_bound)")
+            from cmvs_pmvs_tpu.utils.options import read_bimages
+            bindexes = read_bimages(opt.prefix, scene.image_ids)
+        n = self.scene.cams.num
+        tn = len(opt.timages)
+        self.cfg = EngineConfig.from_options(opt, n, tn, gh, gw, p_cap,
+                                             bindexes=bindexes)
+        self.p_cap = p_cap
+        self.thr = Thresholds.initial(opt.threshold, opt.max_angle_threshold,
+                                      opt.quad_threshold, self.device)
+        self.cloud = empty_cloud(p_cap, self.cfg.t_store, self.device)
+        self.grid = empty_grid(tn, gh, gw, self.device)
+        self.log = log
+        self.stats: list[dict] = []
+        self.overflowed = False
+        self.tracer = tracer if tracer is not None else Tracer()
+
+    def _check_capacity(self, dropped: int = 0):
+        """Report patch-capacity pressure instead of truncating silently."""
+        n = int(self.cloud.count())
+        if dropped > 0:
+            self.overflowed = True
+            self.log(f"WARNING: patch capacity overflow: {dropped} accepted "
+                     f"patches dropped (capacity {self.p_cap}); rerun with "
+                     f"a larger p_cap")
+        elif n > self.p_cap * 9 // 10:
+            self.log(f"WARNING: patch cloud at {n}/{self.p_cap} "
+                     f"(>90% capacity)")
+
+    def _grow(self, new_cap: int):
+        """Pad the patch arrays to `new_cap` rows; existing rows and grid
+        indices keep their positions."""
+        old = self.cloud.capacity
+        if new_cap <= old:
+            return
+        self.log(f"growing patch capacity {old} -> {new_cap}")
+        big = empty_cloud(new_cap, self.cloud.max_views, self.device)
+        self.cloud = PatchCloud(**{
+            f.name: torch.cat([getattr(self.cloud, f.name),
+                               getattr(big, f.name)[old:]])
+            for f in dataclasses.fields(big)})
+        self.p_cap = new_cap
+
+    def _compact(self):
+        """Re-pack alive rows to the prefix; remap grid.depth_idx."""
+        self.cloud, inv = compact_cloud(self.cloud)
+        didx = self.grid.depth_idx
+        self.grid = replace(self.grid, depth_idx=torch.where(
+            didx >= 0, inv[didx.clamp(min=0).long()], didx))
+
+    def run(self, expand_iters: int = 3, max_waves: int = 12,
+            refine_iters: int = 8, start_iter: int = 0) -> PatchCloud:
+        """Detect, seed, then the expand/filter rounds. `start_iter > 0`
+        resumes from checkpointed state (load_checkpoint)."""
+        if start_iter > 0:
+            return self._run_iters(start_iter, expand_iters, max_waves,
+                                   refine_iters)
+        cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
+        tr = self.tracer
+        t0 = time.time()
+        with tr.span("detect", block=True):
+            lv = cfg.level
+            h = int(pyr.heights[lv].max())
+            w = int(pyr.widths[lv].max())
+            x0 = int(pyr.xoff[lv])
+            img = pyr.atlas[:, :h, x0:x0 + w, :]
+            mask = pyr.mask_atlas[:, :h, x0:x0 + w] \
+                * pyr.edge_atlas[:, :h, x0:x0 + w]
+            feats = detect_features(img, mask, pyr.widths[lv],
+                                    pyr.heights[lv], fcsize=16)
+            nfeat = int(feats["valid"].sum())
+        tr.add_counter("detect", "features", nfeat)
+        self.log(f"features: {nfeat} ({time.time() - t0:.1f}s)")
+
+        ref_views, rv_valid = collect_images_all(
+            cams, self.scene.visdata, self.scene.distances, cfg.tau,
+            cfg.sequence)
+        t1 = time.time()
+        with tr.span("seed", block=True):
+            def ensure(needed: int):
+                headroom = int(self.cloud.count()) + needed
+                if headroom > self.p_cap:
+                    self._grow(headroom)
+                return self.cloud
+
+            self.cloud, sdrop = run_seed(
+                cams, pyr, cfg, self.thr, self.scene.visdata, feats,
+                ref_views, rv_valid, self.cloud, refine_iters=refine_iters,
+                ensure_capacity=ensure)
+            nseed = int(self.cloud.count())
+        tr.add_counter("seed", "patches", nseed)
+        self.log(f"seed: {nseed} patches ({time.time() - t1:.1f}s)")
+        self._check_capacity(int(sdrop))
+        self.cloud, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
+                                                   self.cloud, self.grid)
+        return self._run_iters(0, expand_iters, max_waves, refine_iters,
+                               t0=t0)
+
+    def _run_iters(self, start_iter: int, expand_iters: int,
+                   max_waves: int, refine_iters: int,
+                   t0: float | None = None) -> PatchCloud:
+        cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
+        tr = self.tracer
+        t0 = time.time() if t0 is None else t0
+        if start_iter > 0:
+            self.cloud, self.grid = refresh_visibility(
+                cams, pyr, cfg, self.thr, self.cloud, self.grid)
+        for it in range(start_iter, expand_iters):
+            t2 = time.time()
+            frontier = self.cloud.alive.clone()
+            total_new = total_vdrops = 0
+            f_n, n_alive = (int(v) for v in torch.stack(
+                [frontier.sum(), self.cloud.count()]).cpu())
+            slack = 0 if it == 0 else 1
+            for wave in range(max_waves):
+                if f_n == 0:
+                    break
+                with tr.span("expand", block=True):
+                    disc = expand_discover(cams, pyr, cfg, self.thr,
+                                           self.cloud, self.grid, frontier,
+                                           slack)
+                    ncand = int(disc.sval.sum())
+                    if ncand == 0:
+                        break
+                    cbudget = min(ncand, COMMIT_CAP)
+                    if n_alive + cbudget > self.p_cap:
+                        self._grow(max(self.p_cap * 2, n_alive + cbudget))
+                    self.cloud, self.grid, frontier, st = expand_commit(
+                        cams, pyr, cfg, self.thr, self.scene.visdata,
+                        self.cloud, self.grid, disc, cbudget,
+                        refine_iters=refine_iters)
+                    acc, vdrops, dropped, frn = (int(v) for v in torch.stack(
+                        [st.accepted, st.view_drops.to(st.accepted.dtype),
+                         st.dropped.to(st.accepted.dtype),
+                         frontier.sum()]).cpu())
+                total_new += acc
+                total_vdrops += vdrops
+                tr.add_counter("expand", "accepted", acc)
+                tr.add_counter("expand", "candidates", ncand)
+                self._check_capacity(dropped)
+                self.log(f"  it{it} wave{wave}: +{acc} (cand {ncand}, "
+                         f"batch {cbudget}, frontier {f_n})")
+                f_n = frn
+                n_alive += acc
+                if acc == 0 and frn == 0:
+                    break
+            self.log(f"expand it{it}: +{total_new} -> "
+                     f"{int(self.cloud.count())} ({time.time() - t2:.1f}s)")
+            t3 = time.time()
+            with tr.span("filter", block=True):
+                self.cloud, self.grid, fstats = run_filters(
+                    cams, pyr, cfg, self.thr, self.cloud, self.grid)
+                self._compact()
+            flat = [v for pair in fstats.values() for v in pair]
+            vals = [int(v) for v in torch.stack(
+                [torch.as_tensor(v, device=self.device) for v in flat]
+                + [(self.grid.occ - cfg.cell_k).clamp(min=0).sum(),
+                   (self.grid.vocc - cfg.cell_k).clamp(min=0).sum()]).cpu()]
+            msg = ", ".join(f"{k} {vals[2 * i]}->{vals[2 * i + 1]}"
+                            for i, k in enumerate(fstats))
+            self.log(f"filter it{it}: {msg} ({time.time() - t3:.1f}s)")
+            cell_trunc, vcell_trunc = vals[-2], vals[-1]
+            if cell_trunc or vcell_trunc:
+                self.log(f"  cell_k truncation: {cell_trunc} patches "
+                         f"(pgrids) / {vcell_trunc} (vpgrids) beyond "
+                         f"k={cfg.cell_k}")
+            self.stats.append({"iter": it, "new": total_new,
+                               "view_drops": total_vdrops,
+                               "cell_trunc": cell_trunc,
+                               "vcell_trunc": vcell_trunc,
+                               **{k: (vals[2 * i], vals[2 * i + 1])
+                                  for i, k in enumerate(fstats)}})
+            self.thr = self.thr.relaxed()
+        self.log(f"total: {int(self.cloud.count())} patches "
+                 f"({time.time() - t0:.1f}s)")
+        return self.cloud
+
+    # ---- checkpoint / resume: the reference package's npz layout ----
+    def save_checkpoint(self, path: str, iteration: int = 0):
+        arrays = {"iteration": np.asarray(iteration)}
+        for prefix, obj in (("cloud", self.cloud), ("grid", self.grid),
+                            ("thr", self.thr)):
+            for f in dataclasses.fields(obj):
+                arrays[f"{prefix}_{f.name}"] = getattr(
+                    obj, f.name).cpu().numpy()
+        np.savez_compressed(path, **arrays)
+
+    def load_checkpoint(self, path: str) -> int:
+        from ..convert import engine_state_from_jax_checkpoint
+        self.cloud, self.grid, self.thr, it = \
+            engine_state_from_jax_checkpoint(path, self.device)
+        self.p_cap = self.cloud.capacity
+        return it
+
+    # ---- output (patchOrganizerS.cpp:89-132, 687-779) ----
+    def write(self, prefix: str, ply=True, patch=True, pset=True):
+        from cmvs_pmvs_tpu.io.patches import PatchRecord, \
+            write_patch_file, write_pset
+        from cmvs_pmvs_tpu.io.ply import write_patch_ply
+        cloud = self.cloud
+        idx = torch.nonzero(cloud.alive).flatten()
+        host = {f.name: getattr(cloud, f.name)[idx].cpu().numpy()
+                for f in dataclasses.fields(cloud)}
+        coord, normal = host["coord"], host["normal"]
+        if ply:
+            write_patch_ply(prefix + ".ply", coord[:, :3], normal[:, :3],
+                            colors=self._patch_colors(idx),
+                            quality=host["ncc"])
+        if pset:
+            write_pset(prefix + ".pset", coord[:, :3], normal[:, :3])
+        if patch:
+            ids = self.scene.image_ids
+            recs = [PatchRecord(
+                coord=coord[k], normal=normal[k], ncc=float(host["ncc"][k]),
+                dscale=float(host["dscale"][k]),
+                ascale=float(host["ascale"][k]),
+                images=[ids[i] for i in host["images"][k] if i >= 0],
+                vimages=[ids[i] for i in host["vimages"][k] if i >= 0])
+                for k in range(len(idx))]
+            write_patch_file(prefix + ".patch", recs)
+
+    def _patch_colors(self, idx) -> np.ndarray:
+        """Mean projected colour over a patch's images
+        (patchOrganizerS.cpp:722-734)."""
+        cams, pyr = self.scene.cams, self.scene.pyr
+        lv = self.cfg.level
+        coord = self.cloud.coord[idx]
+        imgs = self.cloud.images[idx]
+        ok = imgs >= 0
+        vid = imgs.clamp(min=0).long()
+        ic = project(cams.P[vid], coord[:, None, :], lv)
+        col = bilinear_color(pyr, vid, lv, ic[..., 0], ic[..., 1])
+        col = torch.where(ok[..., None], col, torch.zeros_like(col))
+        denom = ok.sum(1).clamp(min=1)
+        return (col.sum(1) / denom[:, None]).cpu().numpy()
+
+
+def reconstruct(prefix: str, option_name: str, p_cap: int = 200_000,
+                log=print, profile_dir: str | None = None, device="cuda",
+                **run_kwargs) -> PMVSEngine:
+    """pmvs3 entry: load, run, write models/<option> (pmvs.cpp:7-63)."""
+    dev = resolve_device(device)
+    opt = PMVSOptions.parse(os.path.join(prefix, option_name))
+    scene = load_scene(prefix, opt, device=dev)
+    tracer = Tracer(profile_dir=profile_dir)
+    engine = PMVSEngine(scene, opt, p_cap=p_cap, log=log, tracer=tracer,
+                        device=dev)
+    with tracer.trace():
+        engine.run(**run_kwargs)
+    out = os.path.join(prefix, "models", option_name)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    engine.write(out)
+    tracer.write(out + ".trace.json")
+    log(tracer.summary())
+    return engine
