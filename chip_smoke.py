@@ -8,20 +8,37 @@ failure (the script then exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the hand-written kernels (cmvs_pmvs_tpu_torch/csrc)
-   with nvcc into build/torch_kernels/.
-3. K1 (refine-fan INCC, ops/fan2.incc_fan) against its plain PyTorch
+   with nvcc, one process per source, into build/torch_kernels/.
+3. K1 (refine-fan INCC v2, ops/fan2.incc_fan) against its plain PyTorch
    version on the card: 640x480 plane scene, 6 views, 8192 patches, fan
    4 and fan 1; bar max |diff| <= 1e-4 on valid pairs.
 4. K2 (normalized windows, ops/windows.windows) against its plain
    version: 8192 patches x 12 views, wsize 7; bar max |diff| <= 1e-4.
-5. The full protocol through the port's `reconstruct`: occluded scene,
-   12 views at 640x480, level 0, 3 expand rounds. Checks the kernel
-   launch counters, the patch count, the distance to the true surface
-   and the written .patch/.ply/.pset files.
+5. The full protocol through the port's `reconstruct` in the default
+   configuration (fan LM with K1, windows with K2): occluded scene, 12
+   views at 640x480, level 0, 3 expand rounds. Checks the kernel launch
+   counters, the patch count, the distance to the true surface and the
+   written .patch/.ply/.pset files.
+6. K3 (refine-fan INCC v1, ops/fan.incc_fan_v1) against its plain
+   version at phase 3's shape, fan 4 and fan 1; bar 1e-4 on valid pairs.
+   Also K3 against K1 on the same inputs, with the count of probes that
+   left their pair's probe-0 tile (where the two legitimately differ).
+7. K4 (fused block INCC, ops/incc.incc_blocks) against its plain
+   version: 8192 patches x 6 views, wsize 7; bar 1e-4.
+8. Phase 5's protocol with refine.USE_FAN_V2 = False (the fan LM on K3):
+   K3 launched, K1 not; the same bars.
+9. Phase 5's protocol with refine.USE_FAN = False (the central-
+   difference LM on the card, its objective on K4): K4 launched; the
+   same bars.
 
-The line before the last is a JSON object with each kernel's launches in
-phase 5, error and times; the last line is
-{"ok": true, "device": {...}}. The script imports no jax.
+Every kernel's launch counter is set to 0 just before each protocol run
+and read just after it. The line before the last is a JSON object with
+each kernel's launches (in the run whose path it serves, and per run),
+error, times, and its bound: the larger of its compulsory bytes over the
+H100's 3.35 TB/s and its float32 operations over the 67 TFLOP/s
+non-tensor peak, counted from this run's inputs. The last line is
+{"ok": true, "device": {...}}. The script imports no jax and nothing of
+the JAX package.
 """
 from __future__ import annotations
 
@@ -37,6 +54,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4
 BATCH = 8192
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# float32 operations per (pair[, probe], sample) of each kernel:
+#   K1: 8 lattice position, 4 bilinear fractions, 33 bilinear RGB, 3 sum,
+#       3 deviation, 6 square-sum, 6 cross-sum
+#   K3: K1 + 2 tile-relative shifts
+#   K2: 4 weights, 27 bilinear RGB, 3 sum, 3 deviation, 6 square-sum,
+#       3 normalize
+#   K4: K2 + 6 cross-sum
+FLOPS_PER_SAMPLE = {"incc_fan": 63, "incc_fan_v1": 65, "windows": 46,
+                    "incc_blocks": 52}
 
 
 def log(msg: str):
@@ -75,14 +103,37 @@ def timed(fn, runs: int = 7, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def atlas_bytes(atlas, n, y, x) -> int:
+    """Bytes of the distinct atlas pixels that the taps (n, y, x) read."""
+    import torch
+    _, h, wa, c = atlas.shape
+    flat = (n.long() * h + y.long().clamp(0, h - 1)) * wa \
+        + x.long().clamp(0, wa - 1)
+    return int(torch.unique(flat.flatten()).numel()) * c
+
+
+def bound(name: str, samples: int, nbytes: int) -> dict:
+    """The least time the H100 could take: compulsory bytes over HBM
+    bandwidth vs float32 operations over the non-tensor peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = samples * FLOPS_PER_SAMPLE[name] / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": samples * FLOPS_PER_SAMPLE[name]}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def plane_batch(num_cameras: int, dev):
     """The kernel bench's geometry: 640x480 plane scene, BATCH patches on
     the plane seen from camera 0, perturbed along the ray by +-2 dscale."""
     import torch
-    from cmvs_pmvs_tpu.utils.synthetic import make_plane_scene
     from cmvs_pmvs_tpu_torch.geom import build_camera_set
     from cmvs_pmvs_tpu_torch.image import build_pyramids
     from cmvs_pmvs_tpu_torch.ops.refine import set_scales
+    from cmvs_pmvs_tpu_torch.utils.synthetic import make_plane_scene
 
     scene = make_plane_scene(num_cameras=num_cameras, width=640, height=480,
                              focal=800.0)
@@ -114,9 +165,10 @@ def plane_batch(num_cameras: int, dev):
     return cams, pyr, coord, normal, views, valid, dscale
 
 
-def phase_k1(dev):
+def fan_inputs(dev):
+    """grab_frames outputs at the LM's probe stacks, fan 4 and fan 1."""
     import torch
-    from cmvs_pmvs_tpu_torch.ops import fan2
+    from cmvs_pmvs_tpu_torch.ops.fan import grab_frames
     from cmvs_pmvs_tpu_torch.ops.refine import (FAN_H, decode_params,
                                                 encode_params, make_problem)
     cams, pyr, coord, normal, views, valid, dscale = plane_batch(6, dev)
@@ -130,8 +182,45 @@ def phase_k1(dev):
             q[:, k] += FAN_H
             ps.append(q)
         cf, nf = zip(*(decode_params(cams, prob, q) for q in ps))
-        vid, frames, ok = fan2.grab_frames(cams, pyr, 0, 7, views, valid,
-                                           torch.stack(cf), torch.stack(nf))
+        out[fan] = grab_frames(cams, pyr, 0, 7, views, valid,
+                               torch.stack(cf), torch.stack(nf))
+    return pyr, out
+
+
+def fan_taps(frames, ok, tile_org=None):
+    """Rows, columns and keep-masks of the four bilinear taps of every
+    sample of every ok probe; with tile_org, only the taps inside the
+    pair's tile are kept."""
+    import torch
+    from cmvs_pmvs_tpu_torch.ops.fan import TILE_PX, window_positions
+    x, y = window_positions(frames, 7)                      # [B,T,F,S2]
+    keep = ok[..., None].expand_as(x)
+    fx, fy = torch.floor(x).long(), torch.floor(y).long()
+    cols = [fx, fx + 1, fx, fx + 1]
+    rows = [fy, fy, fy + 1, fy + 1]
+    masks = [keep] * 4
+    if tile_org is not None:
+        ox = tile_org[:, :, None, None, 0].long()
+        oy = tile_org[:, :, None, None, 1].long()
+        masks = [keep & (c >= ox) & (c < ox + TILE_PX) & (r >= oy)
+                 & (r < oy + TILE_PX) for c, r in zip(cols, rows)]
+    return rows, cols, masks
+
+
+def fan_atlas_bytes(atlas, vid, frames, ok, tile_org=None) -> int:
+    import torch
+    rows, cols, masks = fan_taps(frames, ok, tile_org)
+    n = vid[:, :, None, None].expand_as(rows[0])
+    return atlas_bytes(atlas, torch.cat([n[m] for m in masks]),
+                       torch.cat([r[m] for r, m in zip(rows, masks)]),
+                       torch.cat([c[m] for c, m in zip(cols, masks)]))
+
+
+def phase_k1(pyr, inputs):
+    import torch
+    from cmvs_pmvs_tpu_torch.ops import fan2
+    out = {}
+    for fan, (vid, _, frames, ok) in inputs.items():
         args = (pyr.atlas_u8, vid, frames, ok, 7)
         got = fan2.incc_fan(*args)
         want = fan2.incc_fan_plain(*args)
@@ -140,48 +229,136 @@ def phase_k1(dev):
         err = float((got - want).abs()[pair].max())
         ms = timed(lambda: fan2.incc_fan(*args))
         plain_ms = timed(lambda: fan2.incc_fan_plain(*args))
+        b = bound("incc_fan", frames.shape[:3].numel() * 49,
+                  nbytes(vid, frames, ok, got)
+                  + fan_atlas_bytes(pyr.atlas_u8, vid, frames, ok))
         log(f"K1 fan={fan}: B={BATCH} T=6 valid pairs "
             f"{float(pair.float().mean()):.4f} max|diff| {err:.3e} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+            f"{b['flops']} FLOP)")
         if not err <= TOL:
             raise AssertionError(f"K1 fan={fan} differs: {err} > {TOL}")
-        out[fan] = (err, ms, plain_ms)
+        out[fan] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
     return out
+
+
+def phase_k3(pyr, inputs):
+    import torch
+    from cmvs_pmvs_tpu_torch.ops import fan, fan2
+    out = {}
+    for nfan, (vid, org, frames, ok) in inputs.items():
+        args = (pyr.atlas_u8, vid, org, frames, ok, 7)
+        got = fan.incc_fan_v1(*args)
+        want = fan.incc_fan_v1_plain(*args)
+        k1 = fan2.incc_fan(pyr.atlas_u8, vid, frames, ok, 7)
+        stats = {}
+        fan.count_clipped(stats, org, frames, ok, 7)
+        torch.cuda.synchronize()
+        pair = ok & ok[:, 0:1, :]
+        err = float((got - want).abs()[pair].max())
+        vs_k1 = float((got - k1).abs()[pair].max())
+        ms = timed(lambda: fan.incc_fan_v1(*args))
+        plain_ms = timed(lambda: fan.incc_fan_v1_plain(*args))
+        k1_ms = timed(lambda: fan2.incc_fan(pyr.atlas_u8, vid, frames, ok,
+                                            7))
+        b = bound("incc_fan_v1", frames.shape[:3].numel() * 49,
+                  nbytes(vid, org, frames, ok, got)
+                  + fan_atlas_bytes(pyr.atlas_u8, vid, frames, ok, org))
+        log(f"K3 fan={nfan}: B={BATCH} T=6 max|diff| {err:.3e} kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms K1 {k1_ms:.4f} ms bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+            f"{b['flops']} FLOP); vs K1 max|diff| {vs_k1:.3e}, "
+            f"{int(stats['clipped'])} of {int(stats['probes'])} ok probes "
+            f"left their probe-0 tile")
+        if not err <= TOL:
+            raise AssertionError(f"K3 fan={nfan} differs: {err} > {TOL}")
+        out[nfan] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+    return out
+
+
+def block_inputs(num_views: int, dev):
+    from cmvs_pmvs_tpu_torch.ops.refine import _patch_axes
+    from cmvs_pmvs_tpu_torch.ops.texture import grab_block_geometry
+    cams, pyr, coord, normal, views, valid, _ = plane_batch(num_views, dev)
+    px, py = _patch_axes(cams, 0, views[:, 0].long(), coord, normal)
+    starts, relx, rely, ok = grab_block_geometry(
+        cams, pyr, 0, 7, coord, px, py, normal, views, valid)
+    return pyr, (pyr.atlas_u8, starts, relx, rely, ok.reshape(-1))
+
+
+def block_atlas_bytes(atlas, starts, relx, rely, ok) -> int:
+    import torch
+    from cmvs_pmvs_tpu_torch.ops.texture import BLOCK_K
+    fx, fy = torch.floor(relx).long(), torch.floor(rely).long()
+    keep = ok[:, None].expand_as(fx)
+    n = starts[:, 0:1].long().expand_as(fx)[keep]
+    sy = starts[:, 1:2].long().expand_as(fx)[keep]
+    sx = starts[:, 2:3].long().expand_as(fx)[keep]
+    fx, fy = fx[keep], fy[keep]
+    taps = [(dx, dy) for dx in (0, 1) for dy in (0, 1)]
+    inside = [(fx + dx >= 0) & (fx + dx < BLOCK_K) & (fy + dy >= 0)
+              & (fy + dy < BLOCK_K) for dx, dy in taps]
+    return atlas_bytes(
+        atlas, torch.cat([n[m] for m in inside]),
+        torch.cat([(sy + fy + dy)[m] for (_, dy), m in zip(taps, inside)]),
+        torch.cat([(sx + fx + dx)[m] for (dx, _), m in zip(taps, inside)]))
 
 
 def phase_k2(dev):
     import torch
     from cmvs_pmvs_tpu_torch.ops import windows as W
-    from cmvs_pmvs_tpu_torch.ops.refine import _patch_axes
-    from cmvs_pmvs_tpu_torch.ops.texture import grab_block_geometry
-    cams, pyr, coord, normal, views, valid, _ = plane_batch(12, dev)
-    px, py = _patch_axes(cams, 0, views[:, 0].long(), coord, normal)
-    starts, relx, rely, ok = grab_block_geometry(
-        cams, pyr, 0, 7, coord, px, py, normal, views, valid)
-    args = (pyr.atlas_u8, starts, relx, rely, ok.reshape(-1))
+    _, args = block_inputs(12, dev)
     got = W.windows(*args, t=12)
     want = W.windows_plain(*args, t=12)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     ms = timed(lambda: W.windows(*args, t=12))
     plain_ms = timed(lambda: W.windows_plain(*args, t=12))
-    log(f"K2: B={BATCH} N=12 s2=49 ok pairs {float(ok.float().mean()):.4f} "
-        f"max|diff| {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    b = bound("windows", args[2].numel(),
+              nbytes(*args[1:], got) + block_atlas_bytes(*args))
+    log(f"K2: B={BATCH} N=12 s2=49 ok pairs "
+        f"{float(args[4].float().mean()):.4f} max|diff| {err:.3e} kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP)")
     if not err <= TOL:
         raise AssertionError(f"K2 differs: {err} > {TOL}")
-    return err, ms, plain_ms
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
 
 
-def phase_protocol(dev):
+def phase_k4(dev):
     import torch
-    from cmvs_pmvs_tpu.io.patches import read_patch_file, read_pset
-    from cmvs_pmvs_tpu.io.ply import read_ply_xyz
-    from cmvs_pmvs_tpu.utils.synthetic import (make_occluded_scene,
-                                               write_pmvs_tree)
-    from cmvs_pmvs_tpu_torch.models.engine import reconstruct
-    from cmvs_pmvs_tpu_torch.ops.fan2 import incc_fan
-    from cmvs_pmvs_tpu_torch.ops.windows import windows
+    from cmvs_pmvs_tpu_torch.ops import incc
+    _, args = block_inputs(6, dev)
+    got = incc.incc_blocks(*args, t=6)
+    want = incc.incc_blocks_plain(*args, t=6)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ms = timed(lambda: incc.incc_blocks(*args, t=6))
+    plain_ms = timed(lambda: incc.incc_blocks_plain(*args, t=6))
+    b = bound("incc_blocks", args[2].numel(),
+              nbytes(*args[1:], got) + block_atlas_bytes(*args))
+    log(f"K4: B={BATCH} T=6 s2=49 ok pairs "
+        f"{float(args[4].float().mean()):.4f} max|diff| {err:.3e} kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP)")
+    if not err <= TOL:
+        raise AssertionError(f"K4 differs: {err} > {TOL}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
 
+
+def kernel_wrappers():
+    from cmvs_pmvs_tpu_torch.ops.fan import incc_fan_v1
+    from cmvs_pmvs_tpu_torch.ops.fan2 import incc_fan
+    from cmvs_pmvs_tpu_torch.ops.incc import incc_blocks
+    from cmvs_pmvs_tpu_torch.ops.windows import windows
+    return {"incc_fan": incc_fan, "windows": windows,
+            "incc_fan_v1": incc_fan_v1, "incc_blocks": incc_blocks}
+
+
+def write_scene() -> tuple:
+    from cmvs_pmvs_tpu_torch.utils.synthetic import (make_occluded_scene,
+                                                     write_pmvs_tree)
     root = os.path.join(ROOT, "build", "chip_smoke_scene")
     shutil.rmtree(root, ignore_errors=True)
     scene = make_occluded_scene(num_cameras=12, width=640, height=480,
@@ -191,18 +368,46 @@ def phase_protocol(dev):
         f.write("level 0\ncsize 2\nthreshold 0.7\nwsize 7\nminImageNum 3\n"
                 "CPU 4\nsetEdge 0.4\nuseBound 0\nuseVisData 0\n"
                 "sequence -1\ntimages -1 0 12\noimages 0\n")
-    incc_fan.launches = 0
-    windows.launches = 0
+    return scene, root
+
+
+def phase_protocol(dev, scene, root, label: str, flags: dict,
+                   need: tuple, absent: tuple = ()):
+    """One full-protocol run with the refine module's `flags` set (and
+    restored after): every kernel counter zeroed just before, read just
+    after; the kernels in `need` must have launched, those in `absent`
+    must not."""
+    import torch
+    from cmvs_pmvs_tpu_torch.io.patches import read_patch_file, read_pset
+    from cmvs_pmvs_tpu_torch.io.ply import read_ply_xyz
+    from cmvs_pmvs_tpu_torch.models.engine import reconstruct
+    from cmvs_pmvs_tpu_torch.ops import refine
+    from cmvs_pmvs_tpu_torch.ops.fan import incc_fan_v1
+    from cmvs_pmvs_tpu_torch.ops.windows import windows
+
+    wrappers = kernel_wrappers()
+    saved = {k: getattr(refine, k) for k in flags}
+    for k, v in flags.items():
+        setattr(refine, k, v)
     windows.clip_stats = {}
-    t0 = time.time()
-    eng = reconstruct(root, "option.txt", p_cap=200_000, device=dev,
-                      log=log, expand_iters=3, max_waves=12,
-                      refine_iters=8)
-    torch.cuda.synchronize()
-    total = time.time() - t0
-    launches = {"incc_fan": incc_fan.launches, "windows": windows.launches}
+    incc_fan_v1.clip_stats = {}
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        t0 = time.time()
+        eng = reconstruct(root, "option.txt", p_cap=200_000, device=dev,
+                          log=lambda m: None, expand_iters=3, max_waves=12,
+                          refine_iters=8)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        for k, v in saved.items():
+            setattr(refine, k, v)
     clip = {k: int(v) for k, v in windows.clip_stats.items()}
+    clip_v1 = {k: int(v) for k, v in incc_fan_v1.clip_stats.items()}
     windows.clip_stats = None
+    incc_fan_v1.clip_stats = None
 
     alive = eng.cloud.alive.cpu().numpy()
     n = int(alive.sum())
@@ -211,25 +416,31 @@ def phase_protocol(dev):
     d = scene.surface_distance(coord) / dscale
     med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
     phases = {k: round(v.seconds, 3) for k, v in eng.tracer.spans.items()}
-    log(f"protocol: {n} patches, surface distance / dscale median "
-        f"{med:.4f} q90 {q90:.4f}, total {total:.2f} s, phases {phases}")
-    log(f"protocol: kernel launches {launches}; windows pairs with a tap "
-        f"outside the {20}-px block: {clip.get('clipped', 0)} of "
-        f"{clip.get('pairs', 0)} ok pairs")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    log(f"protocol[{label}] {flags}: {n} patches, surface distance / "
+        f"dscale median {med:.4f} q90 {q90:.4f}, total {total:.2f} s, "
+        f"phases {phases}")
+    log(f"protocol[{label}]: kernel launches {launches}; windows pairs "
+        f"with a tap outside the 20-px block: {clip.get('clipped', 0)} of "
+        f"{clip.get('pairs', 0)} ok pairs; K3 probes outside their "
+        f"probe-0 tile: {clip_v1.get('clipped', 0)} of "
+        f"{clip_v1.get('probes', 0)} ok probes")
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"{label}: a kernel of {need} was not "
+                             f"launched: {launches}")
+    if any(launches[k] != 0 for k in absent):
+        raise AssertionError(f"{label}: {absent} launched: {launches}")
     if n < 80_000:
-        raise AssertionError(f"too few patches: {n} < 80000")
+        raise AssertionError(f"{label}: too few patches: {n} < 80000")
     if not (med < 0.4 and q90 < 1.5):
-        raise AssertionError(f"accuracy bars missed: median {med}, q90 {q90}")
+        raise AssertionError(f"{label}: accuracy bars missed: median "
+                             f"{med}, q90 {q90}")
     base = os.path.join(root, "models", "option.txt")
     counts = {"patch": len(read_patch_file(base + ".patch")),
               "ply": len(read_ply_xyz(base + ".ply")),
               "pset": len(read_pset(base + ".pset")[0])}
     if any(c != n for c in counts.values()):
-        raise AssertionError(f"output counts {counts} != {n}")
-    log(f"protocol: outputs read back {counts}")
-    shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"{label}: output counts {counts} != {n}")
+    log(f"protocol[{label}]: outputs read back {counts}")
     return launches
 
 
@@ -243,21 +454,42 @@ def main() -> int:
     log(f"build: {time.time() - t0:.2f} s (nvcc {kernels.build_seconds:.2f}"
         f" s) -> {kernels.library_path().relative_to(ROOT)}")
     dev = torch.device("cuda")
-    k1 = phase_k1(dev)
+    pyr, fan_in = fan_inputs(dev)
+    k1 = phase_k1(pyr, fan_in)
     k2 = phase_k2(dev)
-    launches = phase_protocol(dev)
-    k1_err = max(v[0] for v in k1.values())
+    scene, root = write_scene()
+    runs = {"default": phase_protocol(dev, scene, root, "default", {},
+                                      need=("incc_fan", "windows"))}
+    k3 = phase_k3(pyr, fan_in)
+    k4 = phase_k4(dev)
+    runs["fan_v1"] = phase_protocol(
+        dev, scene, root, "fan_v1", {"USE_FAN_V2": False},
+        need=("incc_fan_v1", "windows"), absent=("incc_fan",))
+    runs["central"] = phase_protocol(
+        dev, scene, root, "central", {"USE_FAN": False},
+        need=("incc_blocks", "windows"), absent=("incc_fan", "incc_fan_v1"))
+    shutil.rmtree(root, ignore_errors=True)
+
+    def row(name, source, replaces, run, res):
+        return {"name": name, "route": "cuda",
+                "source": f"cmvs_pmvs_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": runs[run][name],
+                "launches_by_run": {r: v[name] for r, v in runs.items()},
+                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "incc_fan", "route": "cuda",
-         "source": "cmvs_pmvs_tpu_torch/csrc/fan2.cu",
-         "replaces": "cmvs_pmvs_tpu/ops/pallas_fan2.py:115",
-         "launches": launches["incc_fan"], "max_abs_err": k1_err,
-         "ms": k1[4][1], "plain_ms": k1[4][2]},
-        {"name": "windows", "route": "cuda",
-         "source": "cmvs_pmvs_tpu_torch/csrc/windows.cu",
-         "replaces": "cmvs_pmvs_tpu/ops/pallas_incc.py:81",
-         "launches": launches["windows"], "max_abs_err": k2[0],
-         "ms": k2[1], "plain_ms": k2[2]}]}))
+        row("incc_fan", "fan2.cu", "cmvs_pmvs_tpu/ops/pallas_fan2.py:115",
+            "default", {**k1[4], "max_abs_err": max(
+                v["max_abs_err"] for v in k1.values())}),
+        row("windows", "windows.cu", "cmvs_pmvs_tpu/ops/pallas_incc.py:81",
+            "default", k2),
+        row("incc_fan_v1", "fan.cu", "cmvs_pmvs_tpu/ops/pallas_fan.py:107",
+            "fan_v1", {**k3[4], "max_abs_err": max(
+                v["max_abs_err"] for v in k3.values())}),
+        row("incc_blocks", "incc.cu", "cmvs_pmvs_tpu/ops/pallas_incc.py:32",
+            "central", k4)]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,16 +7,19 @@ find:
 
   geom/    - batched cameras, epipolar geometry, triangulation
   image/   - mip-atlas pyramids + bilinear sampling
-  ops/     - texture grabs, the two hand-written CUDA kernels (ops/fan2:
-             the refine fan INCC, ops/windows: normalized texture
+  ops/     - texture grabs, the hand-written CUDA kernels (ops/fan2 and
+             ops/fan: the refine fan INCC, v2 and v1; ops/incc: the
+             fused block INCC; ops/windows: normalized texture
              windows), LM refinement, Harris/DoG detection
   models/  - the PMVS engine: seed, expand, filter, patch cloud, grid
-  utils/   - tracing
+  io/      - cameras, images, vis.dat, .patch/.pset/.ply
+  utils/   - options, synthetic scenes, tracing
   cli/     - the pmvs3 entry point
 
-Jax-free modules of the reference package are shared by import, not
-copied: `cmvs_pmvs_tpu.io.*`, `cmvs_pmvs_tpu.utils.options` and
-`cmvs_pmvs_tpu.utils.synthetic`. This package never imports jax.
+The package imports neither jax nor anything of `cmvs_pmvs_tpu`: the
+reference package's jax-free modules it needs (io/, utils/options.py,
+utils/synthetic.py) are copied here, and tests/test_torch_imports.py
+checks that no import reaches the reference package.
 
 Precision: float32 matmuls and convolutions run in full float32 (no
 TF32). The pyramid downsample is bit-exact against the reference and

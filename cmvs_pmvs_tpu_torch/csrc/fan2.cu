@@ -80,21 +80,7 @@ __global__ void fan_incc_kernel(const uint8_t* __restrict__ atlas, int N,
       sum[c] += val[c];
     }
   }
-  float mean[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) mean[c] = cmvs::warp_sum(sum[c]) / s2;
-  __syncwarp();
-
-  float sq = 0.f;
-  for (int s = lane; s < s2; s += 32) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float d = win[s * 3 + c] - mean[c];
-      win[s * 3 + c] = d;
-      sq += d * d;
-    }
-  }
-  const float var = cmvs::warp_sum(sq) / (3.f * s2);
+  const float var = cmvs::center_window(win, s2, lane, sum);
   if (lane == 0) var_sh[v] = var;
   __syncthreads();
 

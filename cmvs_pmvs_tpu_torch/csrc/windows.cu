@@ -47,50 +47,20 @@ __global__ void windows_kernel(const uint8_t* __restrict__ atlas, int N,
     return;
   }
   float* win = sh + w * s2 * 3;
-  const int n = cmvs::clampi(starts[p * 3], 0, N - 1);
-  const int sy = cmvs::clampi(starts[p * 3 + 1], 0, H - k > 0 ? H - k : 0);
-  const int sx = cmvs::clampi(starts[p * 3 + 2], 0, WA - k > 0 ? WA - k : 0);
+  const cmvs::Block blk = cmvs::block_of(starts, p, N, H, WA, k);
 
   float sum[3] = {0.f, 0.f, 0.f};
   for (int s = lane; s < s2; s += 32) {
-    const float rx = relx[p * s2 + s];
-    const float ry = rely[p * s2 + s];
-    const float fx = floorf(rx), fy = floorf(ry);
-    const int lx = static_cast<int>(fx), ly = static_cast<int>(fy);
-    const float ax = rx - fx, ay = ry - fy;
-    const float wx0 = (lx >= 0 && lx < k) ? 1.f - ax : 0.f;
-    const float wx1 = (lx + 1 >= 0 && lx + 1 < k) ? ax : 0.f;
-    const float wy0 = (ly >= 0 && ly < k) ? 1.f - ay : 0.f;
-    const float wy1 = (ly + 1 >= 0 && ly + 1 < k) ? ay : 0.f;
-    float p00[3], p01[3], p10[3], p11[3];  // p<dx><dy>
-    cmvs::atlas_rgb(atlas, n, H, WA, sy + ly, sx + lx, p00);
-    cmvs::atlas_rgb(atlas, n, H, WA, sy + ly + 1, sx + lx, p01);
-    cmvs::atlas_rgb(atlas, n, H, WA, sy + ly, sx + lx + 1, p10);
-    cmvs::atlas_rgb(atlas, n, H, WA, sy + ly + 1, sx + lx + 1, p11);
+    float val[3];
+    cmvs::block_sample(atlas, H, WA, blk, k, relx[p * s2 + s],
+                       rely[p * s2 + s], val);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float row0 = wy0 * p00[c] + wy1 * p01[c];
-      const float row1 = wy0 * p10[c] + wy1 * p11[c];
-      const float val = wx0 * row0 + wx1 * row1;
-      win[s * 3 + c] = val;
-      sum[c] += val;
+      win[s * 3 + c] = val[c];
+      sum[c] += val[c];
     }
   }
-  float mean[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) mean[c] = cmvs::warp_sum(sum[c]) / s2;
-  __syncwarp();
-
-  float sq = 0.f;
-  for (int s = lane; s < s2; s += 32) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float d = win[s * 3 + c] - mean[c];
-      win[s * 3 + c] = d;
-      sq += d * d;
-    }
-  }
-  float sd = sqrtf(cmvs::warp_sum(sq) / (3.f * s2));
+  float sd = sqrtf(cmvs::center_window(win, s2, lane, sum));
   if (sd == 0.f) sd = 1.f;
   __syncwarp();
   for (int i = lane; i < s2 * 3; i += 32) dst[i] = win[i] / sd;

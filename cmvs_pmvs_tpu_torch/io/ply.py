@@ -1,0 +1,73 @@
+"""ASCII PLY writer/reader for patch clouds.
+
+Schema matches reference source/pmvs/patchOrganizerS.cpp:687-779:
+x y z nx ny nz diffuse_{red,green,blue} quality(=ncc).
+
+The port's own copy of cmvs_pmvs_tpu/io/ply.py (the port imports nothing
+of the JAX package). The writer formats whole rows with one `%`
+template; the bytes are the same as the JAX package's Python writer.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+_HEADER = """ply
+format ascii 1.0
+element vertex {n}
+property float x
+property float y
+property float z
+property float nx
+property float ny
+property float nz
+property uchar diffuse_red
+property uchar diffuse_green
+property uchar diffuse_blue
+property float quality
+end_header
+"""
+_ROW = "%.9g %.9g %.9g %.9g %.9g %.9g %d %d %d %.9g\n"
+
+
+def write_patch_ply(path: str, coords: np.ndarray, normals: np.ndarray,
+                    colors: np.ndarray | None = None,
+                    quality: np.ndarray | None = None) -> None:
+    coords = np.asarray(coords).reshape(-1, 3)
+    normals = np.asarray(normals).reshape(-1, 3)
+    n = len(coords)
+    if colors is None:
+        colors = np.full((n, 3), 128, dtype=np.int64)
+    else:
+        colors = np.clip(np.floor(np.asarray(colors) + 0.5), 0,
+                         255).astype(np.int64).reshape(-1, 3)
+    if quality is None:
+        quality = np.zeros(n)
+    rows = zip(coords.astype(np.float64).tolist(),
+               normals.astype(np.float64).tolist(), colors.tolist(),
+               np.asarray(quality, np.float64).reshape(-1).tolist())
+    with open(path, "w") as f:
+        f.write(_HEADER.format(n=n))
+        f.write("".join(_ROW % (*c, *nn, *rgb, q)
+                        for c, nn, rgb, q in rows))
+
+
+def read_ply_xyz(path: str) -> np.ndarray:
+    """Read vertex x,y,z from an ASCII PLY (enough for comparisons)."""
+    with open(path) as f:
+        line = f.readline().strip()
+        if line != "ply":
+            raise ValueError("Not a PLY file")
+        nvert = 0
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError("No end_header")
+            if line.startswith("element vertex"):
+                nvert = int(line.split()[2])
+            if line.strip() == "end_header":
+                break
+        out = np.empty((nvert, 3))
+        for i in range(nvert):
+            vals = f.readline().split()
+            out[i] = [float(vals[0]), float(vals[1]), float(vals[2])]
+    return out

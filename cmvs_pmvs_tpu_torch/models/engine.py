@@ -18,16 +18,16 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from cmvs_pmvs_tpu.io.cameras import read_camera_txt
-from cmvs_pmvs_tpu.io.images import find_image_path, load_image, \
-    load_pgm_mask
-from cmvs_pmvs_tpu.utils.options import PMVSOptions, build_visdata
-
 from ..device import resolve_device, tree_to
 from ..geom.cameras import CameraSet, build_camera_set, project
 from ..image.pyramid import PyramidSet, build_pyramids, set_edge
 from ..image.sample import bilinear_color
+from ..io.cameras import read_camera_txt
+from ..io.images import find_image_path, load_image, load_pgm_mask
+from ..io.patches import write_patch_arrays, write_pset
+from ..io.ply import write_patch_ply
 from ..ops.detect import detect_features
+from ..utils.options import PMVSOptions, build_visdata, read_bimages
 from ..utils.trace import Tracer
 from .config import EngineConfig, Thresholds
 from .expand import expand_commit, expand_discover
@@ -128,7 +128,6 @@ class PMVSEngine:
                     "useBound is set but the options carry no prefix to "
                     "locate bimages.dat (construct PMVSOptions with "
                     "prefix=, or clear use_bound)")
-            from cmvs_pmvs_tpu.utils.options import read_bimages
             bindexes = read_bimages(opt.prefix, scene.image_ids)
         n = self.scene.cams.num
         tn = len(opt.timages)
@@ -323,9 +322,6 @@ class PMVSEngine:
 
     # ---- output (patchOrganizerS.cpp:89-132, 687-779) ----
     def write(self, prefix: str, ply=True, patch=True, pset=True):
-        from cmvs_pmvs_tpu.io.patches import PatchRecord, \
-            write_patch_file, write_pset
-        from cmvs_pmvs_tpu.io.ply import write_patch_ply
         cloud = self.cloud
         idx = torch.nonzero(cloud.alive).flatten()
         host = {f.name: getattr(cloud, f.name)[idx].cpu().numpy()
@@ -338,15 +334,14 @@ class PMVSEngine:
         if pset:
             write_pset(prefix + ".pset", coord[:, :3], normal[:, :3])
         if patch:
-            ids = self.scene.image_ids
-            recs = [PatchRecord(
-                coord=coord[k], normal=normal[k], ncc=float(host["ncc"][k]),
-                dscale=float(host["dscale"][k]),
-                ascale=float(host["ascale"][k]),
-                images=[ids[i] for i in host["images"][k] if i >= 0],
-                vimages=[ids[i] for i in host["vimages"][k] if i >= 0])
-                for k in range(len(idx))]
-            write_patch_file(prefix + ".patch", recs)
+            ids = np.asarray(self.scene.image_ids)
+
+            def on_disk(v):
+                return np.where(v >= 0, ids[np.maximum(v, 0)], -1)
+            write_patch_arrays(prefix + ".patch", coord, normal,
+                               host["ncc"], host["dscale"], host["ascale"],
+                               on_disk(host["images"]),
+                               on_disk(host["vimages"]))
 
     def _patch_colors(self, idx) -> np.ndarray:
         """Mean projected colour over a patch's images

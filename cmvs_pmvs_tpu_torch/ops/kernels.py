@@ -1,11 +1,12 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 The sources under `cmvs_pmvs_tpu_torch/csrc/` are compiled at first use
-with nvcc for sm_90a into one shared library with a plain C interface
-(`build/torch_kernels/` at the repository root, named by a hash of the
-sources so an edited kernel rebuilds), and loaded with ctypes. Nothing
-here runs at import time: a CPU-only host imports the package without
-nvcc.
+with nvcc for sm_90a - one nvcc process per source, all started
+together, then one link - into one shared library with a plain C
+interface (`build/torch_kernels/` at the repository root, named by a
+hash of the sources so an edited kernel rebuilds), and loaded with
+ctypes. Nothing here runs at import time: a CPU-only host imports the
+package without nvcc.
 """
 from __future__ import annotations
 
@@ -21,9 +22,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("fan2.cu", "windows.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("fan2.cu", "fan.cu", "incc.cu", "windows.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC")
 
 _lib = None
 build_seconds = 0.0   # wall time of the last nvcc build (0 if cached)
@@ -32,6 +34,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "cmvs_fan_incc": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cmvs_fan_v1_incc": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P],
+    "cmvs_incc_blocks": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P],
     "cmvs_windows": [_P, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong,
                      _I, _I, _P],
 }
@@ -64,14 +70,29 @@ def build() -> Path:
         build_seconds = 0.0
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o",
+                          str(o)] for s, o in zip(SOURCES, objs))]
+    done = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in procs]
+    failed = [d for d in done if d[2] != 0]
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            failed = [(cmd, proc.stdout, proc.returncode)]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"({rc}) {' '.join(cmd)}\n{out}" for cmd, out, rc in failed))
     os.replace(tmp, path)
     build_seconds = time.time() - t0
     return path

@@ -9,14 +9,20 @@ once.
 
 Two LM paths, as in the reference package:
   * the fan path (`_refine_patches_fan`): forward-difference probes and
-    Broyden updates, every objective evaluation one `ops/fan2.incc_fan`
-    call - the reference package's accelerator path, and the path CUDA
-    tensors take here (kernel K1);
+    Broyden updates, every objective evaluation one fan-kernel call -
+    the reference package's accelerator path, and the path CUDA tensors
+    take by default. `USE_FAN_V2` picks the kernel, as the reference's
+    switch of the same name does: True runs v2 (`ops/fan2.incc_fan`,
+    K1), False v1 (`ops/fan.incc_fan_v1`, K3, all probes of a pair
+    sampled from its probe-0 tile);
   * the central-difference path (refine.py:492-571 in the reference):
-    texture grabs + normalize + dot in plain tensor code - the reference
-    package's CPU path, and the path CPU tensors take here.
-`use_fan` overrides the choice (tests run the fan LM on CPU with the
-plain fan INCC).
+    every objective evaluation is block grabs + normalize + robust INCC
+    vs view 0 (`ops/incc.incc_blocks`: K4 on CUDA tensors, its plain
+    twin on CPU tensors) - the reference package's CPU path, and the
+    path CPU tensors take by default.
+`USE_FAN` overrides the default for every call (None: fan on CUDA,
+central differences on CPU; False is the reference's
+USE_PALLAS_INCC=False); the per-call `use_fan=` argument overrides both.
 """
 from __future__ import annotations
 
@@ -27,9 +33,10 @@ import torch
 
 from ..geom.cameras import CameraSet, get_unit, project, unit3
 from ..image.pyramid import PyramidSet
-from .fan2 import grab_frames, incc_fan
-from .texture import (grab_tex, ncc_dot, normalize_tex, robustincc,
-                      unrobustincc)
+from .fan import grab_frames, incc_fan_v1
+from .fan2 import incc_fan
+from .incc import incc_blocks
+from .texture import grab_block_geometry, unrobustincc
 
 ASCALE = math.pi / 48.0         # optim.cpp:590
 ANGLE_BOUND = 23.99999          # optim.cpp:601-602
@@ -39,6 +46,13 @@ FAN_H = 0.4                     # forward-difference probe step
 # evaluates the full 4-probe fan; the ones between evaluate only the
 # candidate and update J by a Broyden secant (reference refine.py:309-322)
 BROYDEN_REFRESH = 2
+# Fan kernel: True = v2 (K1, ops/fan2), False = v1 (K3, ops/fan); the
+# reference's refine.USE_FAN_V2.
+USE_FAN_V2: bool = True
+# LM path for calls without `use_fan=`: None = the fan LM on CUDA tensors
+# and central differences on CPU tensors; True/False force one path on
+# every device (False is the reference's USE_PALLAS_INCC=False).
+USE_FAN: bool | None = None
 
 
 @dataclass(frozen=True)
@@ -167,15 +181,20 @@ def _patch_axes(cams: CameraSet, level: int, ref, coord, normal):
 
 
 def _use_fan(use_fan, coord) -> bool:
-    return coord.is_cuda if use_fan is None else use_fan
+    if use_fan is not None:
+        return use_fan
+    return coord.is_cuda if USE_FAN is None else USE_FAN
 
 
 def _incc_probes(cams, pyr, level, wsize, views, view_valid, cf, nf):
-    """Raw robust INCCs + validity for [fan, B, 4] probe stacks:
-    (incc [B, T, fan], ok [B, T, fan])."""
-    vid, frames, ok = grab_frames(cams, pyr, level, wsize, views,
-                                  view_valid, cf, nf)
-    return incc_fan(pyr.atlas_u8, vid, frames, ok, wsize), ok
+    """Raw robust INCCs + validity for [fan, B, 4] probe stacks through
+    the fan kernel USE_FAN_V2 selects: (incc [B, T, fan],
+    ok [B, T, fan])."""
+    vid, tile_org, frames, ok = grab_frames(cams, pyr, level, wsize, views,
+                                            view_valid, cf, nf)
+    if USE_FAN_V2:
+        return incc_fan(pyr.atlas_u8, vid, frames, ok, wsize), ok
+    return incc_fan_v1(pyr.atlas_u8, vid, tile_org, frames, ok, wsize), ok
 
 
 def per_view_inccs(cams, pyr, level, wsize, prob: RefineProblem, coord,
@@ -190,10 +209,11 @@ def per_view_inccs(cams, pyr, level, wsize, prob: RefineProblem, coord,
     else:
         ref = prob.views[:, 0].clamp(min=0).long()
         px, py = _patch_axes(cams, level, ref, coord, normal)
-        texs, ok = grab_tex(cams, pyr, level, wsize, coord, px, py, normal,
-                            prob.views, prob.view_valid)
-        texs = normalize_tex(texs, ok)
-        incc = robustincc(1.0 - ncc_dot(texs[:, 0:1], texs))
+        starts, relx, rely, ok = grab_block_geometry(
+            cams, pyr, level, wsize, coord, px, py, normal, prob.views,
+            prob.view_valid)
+        incc = incc_blocks(pyr.atlas_u8, starts, relx, rely, ok.reshape(-1),
+                           ok.shape[1])
     ref_ok = ok[:, 0]
     pair_ok = ok & ref_ok[:, None]
     pair_ok[:, 0] = False
@@ -343,7 +363,8 @@ def refine_patches(cams: CameraSet, pyr: PyramidSet, level: int, wsize: int,
     (replaces refinePatchBFGS, optim.cpp:580-658). Returns (coord,
     normal, ncc, final_f); `active` [B] bool rows pass through unchanged
     when False. The fan path runs when `use_fan` is True, or when it is
-    None and the tensors are on CUDA."""
+    None and USE_FAN is True, or when both are None and the tensors are
+    on CUDA."""
     if active is None:
         active = torch.ones(coord.shape[0], dtype=torch.bool,
                             device=coord.device)

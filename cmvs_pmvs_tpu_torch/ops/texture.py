@@ -9,8 +9,10 @@ texture.py:259-297): each (patch, view) window is read out of one
 BLOCK_K x BLOCK_K pixel block whose origin sits one pixel before the
 window's minimum corner; a bilinear tap that falls outside the block
 gets weight 0. Inside the block this is plain bilinear interpolation.
-`block_bilinear` is that sampler, shared by `grab_tex` and the windows
-kernel's plain version (ops/windows.windows_plain).
+`block_bilinear` is that sampler (grabTex's windows are
+`block_bilinear` on the geometry of `grab_block_geometry`), used by the
+plain versions of the windows and block-INCC kernels (ops/windows,
+ops/incc).
 """
 from __future__ import annotations
 
@@ -141,22 +143,6 @@ def block_bilinear(atlas, n, sy, sx, relx, rely, k: int = BLOCK_K):
     row0 = wy0 * px(0, 0) + wy1 * px(0, 1)
     row1 = wy0 * px(1, 0) + wy1 * px(1, 1)
     return wx0 * row0 + wx1 * row1
-
-
-def grab_tex(cams: CameraSet, pyr: PyramidSet, level: int, wsize: int,
-             coord, pxaxis, pyaxis, pzaxis, views, view_valid,
-             angle_threshold: float = math.pi / 3.0):
-    """wsize^2 RGB windows for a [B, T] batch of (patch, view) pairs
-    (optim.cpp:815-863). Returns (texs [B, T, S2, 3], valid [B, T])."""
-    starts, relx, rely, ok = grab_block_geometry(
-        cams, pyr, level, wsize, coord, pxaxis, pyaxis, pzaxis, views,
-        view_valid, angle_threshold)
-    b, t = views.shape
-    s = starts.reshape(b, t, 3)
-    s2 = wsize * wsize
-    texs = block_bilinear(pyr.atlas, s[..., 0], s[..., 1], s[..., 2],
-                          relx.reshape(b, t, s2), rely.reshape(b, t, s2))
-    return texs, ok
 
 
 def grab_block_geometry(cams: CameraSet, pyr: PyramidSet, level: int,

@@ -11,13 +11,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from cmvs_pmvs_tpu.utils.synthetic import make_plane_scene  # noqa: E402
-
+import cmvs_pmvs_tpu_torch.ops.refine as TR  # noqa: E402
 from cmvs_pmvs_tpu_torch.geom import build_camera_set  # noqa: E402
 from cmvs_pmvs_tpu_torch.image import build_pyramids  # noqa: E402
-from cmvs_pmvs_tpu_torch.ops import fan2, windows as W  # noqa: E402
+from cmvs_pmvs_tpu_torch.ops import fan as F1, fan2, incc  # noqa: E402
+from cmvs_pmvs_tpu_torch.ops import windows as W  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops.refine import _patch_axes  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops.texture import grab_block_geometry  # noqa
+from cmvs_pmvs_tpu_torch.utils.synthetic import make_plane_scene  # noqa
 
 pytestmark = pytest.mark.cuda
 B = 300
@@ -52,16 +53,20 @@ def setup():
                 valid=torch.ones_like(views, dtype=torch.bool), dev=dev)
 
 
+def _frames(s, fan, step=0.002):
+    ray = s["coord"] - s["cams"].center[0]
+    ray = step * ray / torch.linalg.vector_norm(ray[:, :3], dim=1,
+                                                keepdim=True)
+    cf = torch.stack([s["coord"] + k * ray for k in range(fan)])
+    nf = torch.stack([s["normal"]] * fan)
+    return F1.grab_frames(s["cams"], s["pyr"], 0, 7, s["views"],
+                          s["valid"], cf, nf)
+
+
 @pytest.mark.parametrize("fan", [4, 1])
 def test_incc_fan_kernel_matches_plain(setup, fan):
     s = setup
-    ray = s["coord"] - s["cams"].center[0]
-    step = 0.002 * ray / torch.linalg.vector_norm(ray[:, :3], dim=1,
-                                                  keepdim=True)
-    cf = torch.stack([s["coord"] + k * step for k in range(fan)])
-    nf = torch.stack([s["normal"]] * fan)
-    vid, frames, ok = fan2.grab_frames(s["cams"], s["pyr"], 0, 7,
-                                       s["views"], s["valid"], cf, nf)
+    vid, _, frames, ok = _frames(s, fan)
     before = fan2.incc_fan.launches
     got = fan2.incc_fan(s["pyr"].atlas_u8, vid, frames, ok, 7)
     torch.cuda.synchronize()
@@ -72,14 +77,75 @@ def test_incc_fan_kernel_matches_plain(setup, fan):
     assert float((got - want).abs()[pair].max()) <= 1e-4
 
 
-def test_windows_kernel_matches_plain(setup):
+@pytest.mark.parametrize("fan", [4, 1])
+def test_incc_fan_v1_kernel_matches_plain(setup, fan):
+    """K3 at probe steps that keep the probes in their tile and at steps
+    (0.05 scene units, tens of px) that take them out of it."""
     s = setup
+    for step in (0.002, 0.05):
+        vid, org, frames, ok = _frames(s, fan, step)
+        args = (s["pyr"].atlas_u8, vid, org, frames, ok, 7)
+        before = F1.incc_fan_v1.launches
+        got = F1.incc_fan_v1(*args)
+        torch.cuda.synchronize()
+        assert F1.incc_fan_v1.launches == before + 1
+        want = F1.incc_fan_v1_plain(*args)
+        pair = ok & ok[:, 0:1, :]
+        assert float(pair.float().mean()) > 0.3
+        assert float((got - want).abs()[pair].max()) <= 1e-4
+
+
+def _blocks(s):
     px, py = _patch_axes(s["cams"], 0, s["views"][:, 0].long(), s["coord"],
                          s["normal"])
     starts, relx, rely, ok = grab_block_geometry(
         s["cams"], s["pyr"], 0, 7, s["coord"], px, py, s["normal"],
         s["views"], s["valid"])
-    args = (s["pyr"].atlas_u8, starts, relx, rely, ok.reshape(-1))
+    return (s["pyr"].atlas_u8, starts, relx, rely, ok.reshape(-1))
+
+
+def test_incc_blocks_kernel_matches_plain(setup):
+    s = setup
+    args = list(_blocks(s))
+    args[4] = args[4].clone()
+    args[4][::7] = False              # failed grabs, some of them slot 0
+    before = incc.incc_blocks.launches
+    got = incc.incc_blocks(*args, t=T)
+    torch.cuda.synchronize()
+    assert incc.incc_blocks.launches == before + 1
+    want = incc.incc_blocks_plain(*args, t=T)
+    assert bool((want == 2.0).any()) and bool((want[:, 0] == 0.0).any())
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_cuda_paths_launch_their_kernels(setup, monkeypatch):
+    """(f) The central-difference objective on CUDA tensors runs K4, and
+    USE_FAN_V2 = False sends the fan LM's probes through K3."""
+    s = setup
+    prob = TR.make_problem(s["cams"], 0, s["coord"], s["normal"],
+                           s["views"], s["valid"],
+                           torch.ones(B, device=s["dev"]), 3)
+    args = (s["cams"], s["pyr"], 0, 7, prob, s["coord"], s["normal"])
+    k1, k3, k4 = (fan2.incc_fan.launches, F1.incc_fan_v1.launches,
+                  incc.incc_blocks.launches)
+    central = TR.per_view_inccs(*args, use_fan=False)[0]
+    assert incc.incc_blocks.launches == k4 + 1
+    v2 = TR.per_view_inccs(*args)[0]
+    assert fan2.incc_fan.launches == k1 + 1
+    monkeypatch.setattr(TR, "USE_FAN_V2", False)
+    v1 = TR.per_view_inccs(*args)[0]
+    assert F1.incc_fan_v1.launches == k3 + 1
+    assert fan2.incc_fan.launches == k1 + 1
+    assert incc.incc_blocks.launches == k4 + 1
+    torch.cuda.synchronize()
+    for got in (v2, v1):
+        m = got < 2.0
+        assert float((got - central).abs()[m].max()) <= 1e-3
+
+
+def test_windows_kernel_matches_plain(setup):
+    s = setup
+    args = _blocks(s)
     before = W.windows.launches
     got = W.windows(*args, t=T)
     torch.cuda.synchronize()
@@ -100,3 +166,10 @@ def test_wrappers_reject_bad_arguments(setup):
         fan2.incc_fan(atlas, vid, frames.transpose(0, 1), ok, 7)
     with pytest.raises(ValueError):
         fan2.incc_fan(atlas.cpu(), vid, frames, ok, 7)
+    org = torch.zeros((2, T, 2), dtype=torch.int32, device=s["dev"])
+    with pytest.raises(TypeError):
+        F1.incc_fan_v1(atlas, vid, org.float(), frames, ok, 7)
+    starts = torch.zeros((2 * T, 3), dtype=torch.int32, device=s["dev"])
+    rel = torch.zeros((2 * T, 49), device=s["dev"])
+    with pytest.raises(ValueError):
+        incc.incc_blocks(atlas, starts, rel, rel, ok[..., 0].flatten(), t=5)

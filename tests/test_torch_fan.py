@@ -27,6 +27,7 @@ import cmvs_pmvs_tpu_torch.ops.refine as TR  # noqa: E402
 from cmvs_pmvs_tpu_torch.geom import build_camera_set  # noqa: E402
 from cmvs_pmvs_tpu_torch.image import build_pyramids  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops import fan2  # noqa: E402
+from cmvs_pmvs_tpu_torch.ops.fan import grab_frames  # noqa: E402
 
 BATCH = 48
 T = 6
@@ -115,7 +116,7 @@ def test_grab_frames_gates_match_jax(setup, fan):
                               jnp.asarray(s["views"]),
                               jnp.asarray(s["valid"]), jnp.asarray(cf),
                               jnp.asarray(nf))
-    vid, frames, ok = fan2.grab_frames(
+    vid, _, frames, ok = grab_frames(
         s["tc"], s["tp"], 0, 7, torch.tensor(s["views"]),
         torch.tensor(s["valid"]), torch.tensor(cf), torch.tensor(nf))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
@@ -123,8 +124,8 @@ def test_grab_frames_gates_match_jax(setup, fan):
 
 
 def test_fan_per_view_inccs_match_jax_xla_path(setup):
-    """The port's fan-path per_view_inccs (plain K1) vs the JAX CPU
-    per_view_inccs (grab_tex + normalize + dot)."""
+    """The port's per_view_inccs on both paths (plain K1, plain K4) vs
+    the JAX CPU per_view_inccs (grab_tex + normalize + dot)."""
     s = setup
     JR.USE_PALLAS_INCC = False
     try:

@@ -1,5 +1,6 @@
-"""The port imports without jax, and its default device is CUDA: with no
-CUDA device the engine and the CLI raise instead of running on the CPU."""
+"""The port imports neither jax nor anything of the JAX package, and its
+default device is CUDA: with no CUDA device the engine and the CLI raise
+instead of running on the CPU."""
 import os
 import pkgutil
 import subprocess
@@ -31,7 +32,8 @@ def test_every_port_module_imports_without_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k.split('.')[0] == 'jax')\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+            "             ('jax', 'cmvs_pmvs_tpu'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -42,15 +44,34 @@ def test_every_port_module_imports_without_jax():
         proc.stderr[-2000:]
 
 
-def test_no_jax_import_in_port_sources():
+def _port_sources():
     base = os.path.join(ROOT, "cmvs_pmvs_tpu_torch")
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(base):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as f:
-                    src = f.read()
-                assert "import jax" not in src and "from jax" not in src, \
-                    name
+        paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
+    out = {}
+    for path in paths:
+        with open(path) as f:
+            out[os.path.relpath(path, ROOT)] = f.read()
+    return out
+
+
+def test_no_jax_import_in_port_sources():
+    for name, src in _port_sources().items():
+        assert "import jax" not in src and "from jax" not in src, name
+
+
+def test_no_jax_package_reference_in_port_sources():
+    """No module path of the JAX package (`cmvs_pmvs_tpu.` followed by a
+    name; the port's own `cmvs_pmvs_tpu_torch` does not match) and no
+    bare import of it, the native extension included."""
+    srcs = _port_sources()
+    assert len(srcs) > 20
+    for name, src in srcs.items():
+        for needle in ("cmvs_pmvs_tpu.", "from cmvs_pmvs_tpu ",
+                       "import cmvs_pmvs_tpu\n", "import cmvs_pmvs_tpu ",
+                       "_native"):
+            assert needle not in src, (name, needle)
 
 
 @pytest.fixture
