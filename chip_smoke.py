@@ -30,13 +30,20 @@ failure (the script then exits non-zero):
 9. Phase 5's protocol with refine.USE_FAN = False (the central-
    difference LM on the card, its objective on K4): K4 launched; the
    same bars.
+10. The fan-kernel ablations K5, K6, K7 (ops/ablate) on the inputs of
+   their drivers (cmvs_pmvs_tpu_torch/scripts/ablate_fan*.py: 8192
+   patches x 6 views, fan 4; K7 also fan 1): every mode against its
+   plain version, bar 1e-4 (K7's moment sums relative to max(1, |x|));
+   K6 full beside F.grid_sample on pre-gathered tiles; then each
+   driver's own timed sweep of every mode.
 
 Every kernel's launch counter is set to 0 just before each protocol run
-and read just after it. The line before the last is a JSON object with
-each kernel's launches (in the run whose path it serves, and per run),
-error, times, and its bound: the larger of its compulsory bytes over the
-H100's 3.35 TB/s and its float32 operations over the 67 TFLOP/s
-non-tensor peak, counted from this run's inputs. The last line is
+and before the ablation sweeps, and read just after. The line before
+the last is a JSON object with each kernel's launches (in the run whose
+path it serves, and per run), error, times, and its bound: the larger
+of its compulsory bytes over the H100's 3.35 TB/s and its float32
+operations over the 67 TFLOP/s non-tensor peak, counted from this run's
+inputs. The last line is
 {"ok": true, "device": {...}}. The script imports no jax and nothing of
 the JAX package.
 """
@@ -45,7 +52,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import subprocess
 import sys
 import time
 
@@ -63,8 +69,15 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 #   K2: 4 weights, 27 bilinear RGB, 3 sum, 3 deviation, 6 square-sum,
 #       3 normalize
 #   K4: K2 + 6 cross-sum
+#   K5: 18 lattice position (4 hi/lo rows x 4, 2 hi + lo), 10 hat
+#       weights (per axis r - f, f + 1, r - (f + 1), two 1 - |d|), 27
+#       bilinear RGB (9 a channel), 3 sum, 6 square-sum, 6 cross-sum
+#   K6: 10 hat weights, 27 bilinear RGB
+#   K7: 8 lattice position, 10 hat weights, 27 bilinear RGB, 3 sum,
+#       6 square-sum, 6 cross-sum
 FLOPS_PER_SAMPLE = {"incc_fan": 63, "incc_fan_v1": 65, "windows": 46,
-                    "incc_blocks": 52}
+                    "incc_blocks": 52, "incc_fan_abl": 70, "interp_abl": 37,
+                    "moments_abl": 60}
 
 
 def log(msg: str):
@@ -75,32 +88,18 @@ def phase_device():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from cmvs_pmvs_tpu_torch.scripts.ablate_common import card
+    smi = card()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     return smi
 
 
-def timed(fn, runs: int = 7, warmup: int = 2) -> float:
-    """Median milliseconds of `fn` over synchronized runs (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+def timed(fn) -> float:
+    """Median milliseconds of `fn` over 7 synchronized runs (CUDA events)."""
+    from cmvs_pmvs_tpu_torch.scripts.ablate_common import time_ms
+    return time_ms(fn, samples=7)[1]
 
 
 def atlas_bytes(atlas, n, y, x) -> int:
@@ -347,13 +346,200 @@ def phase_k4(dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
 
 
+def tile_tap_bytes(atlas, tilemap, rx, ry) -> int:
+    """Bytes of the distinct atlas pixels that the bilinear taps at
+    tile-relative positions rx/ry [B, T, ...] read inside their pair's
+    tile (the v1 tile rule)."""
+    import torch
+    from cmvs_pmvs_tpu_torch.ops.ablate import decode_tilemap
+    from cmvs_pmvs_tpu_torch.ops.fan import TILE_PX
+    _, h, wa, _ = atlas.shape
+    extra = (1,) * (rx.dim() - 2)
+    n, ox, oy = (x.reshape(x.shape + extra).expand_as(rx)
+                 for x in decode_tilemap(atlas, tilemap))
+    fx, fy = torch.floor(rx).long(), torch.floor(ry).long()
+    ns, ys, xs = [], [], []
+    for dx in (0, 1):
+        for dy in (0, 1):
+            tx, ty = fx + dx, fy + dy
+            m = ((tx >= 0) & (tx < TILE_PX) & (ty >= 0) & (ty < TILE_PX)
+                 & (oy + ty < h) & (ox + tx < wa))
+            ns.append(n[m])
+            ys.append((oy + ty)[m])
+            xs.append((ox + tx)[m])
+    return atlas_bytes(atlas, torch.cat(ns), torch.cat(ys), torch.cat(xs))
+
+
+def check_modes(label, modes, kernel, plain, rel: bool = False) -> dict:
+    """Each mode's kernel output against its plain version: max |diff|
+    (rel: relative to max(1, |plain|)) must be <= TOL."""
+    import torch
+    errs = {}
+    for mode in modes:
+        got = kernel(mode)
+        want = plain(mode)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"{label} {mode}: shape {tuple(got.shape)}"
+                                 f" != {tuple(want.shape)}")
+        diff = (got - want).abs()
+        abs_err = float(diff.max())
+        err = float((diff / want.abs().clamp(min=1.0)).max()) if rel \
+            else abs_err
+        log(f"{label} {mode}: max|diff| {abs_err:.3e}"
+            + (f" (relative {err:.3e})" if rel else ""))
+        if not err <= TOL:
+            raise AssertionError(f"{label} {mode} differs: {err} > {TOL}")
+        errs[mode] = abs_err
+    return errs
+
+
+def grid_sample_k6(inp) -> tuple:
+    """One PyTorch call for K6 full: F.grid_sample (bilinear, zeros
+    padding, align_corners) over the pairs' tiles, gathered beforehand
+    (not timed) as float32 [B*T, 3, 32, 32]. Returns (ms, max |diff|
+    from the kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from cmvs_pmvs_tpu_torch.ops.ablate import decode_tilemap, interp_abl
+    from cmvs_pmvs_tpu_torch.ops.fan import TILE_PX
+    atlas, rel = inp["atlas"], inp["rel"]
+    _, b, t, fan, s2 = rel.shape
+    _, h, wa, _ = atlas.shape
+    n, ox, oy = (x.reshape(-1, 1, 1) for x in decode_tilemap(
+        atlas, inp["tilemap"]))
+    r = torch.arange(TILE_PX, device=atlas.device)
+    ys, xs = oy + r[:, None], ox + r[None, :]
+    tiles = atlas[n, ys.clamp(max=h - 1), xs.clamp(max=wa - 1)].float()
+    tiles = (tiles * ((ys < h) & (xs < wa))[..., None]).permute(
+        0, 3, 1, 2).contiguous()
+    grid = (rel.permute(1, 2, 3, 4, 0).reshape(b * t, fan * s2, 1, 2)
+            * (2.0 / (TILE_PX - 1)) - 1.0).contiguous()
+
+    def call():
+        return F.grid_sample(tiles, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    got = call().reshape(b, t, 3, fan, s2).permute(2, 0, 1, 3, 4)
+    err = float((got - interp_abl(atlas, inp["tilemap"], rel,
+                                  mode="full")).abs().max())
+    return timed(call), err
+
+
+def phase_ablation(dev) -> dict:
+    """Phase 10: K5-K7 against their plain versions on their drivers'
+    inputs, every mode; the bounds of their full modes; then the
+    drivers' own sweeps with the launch counters zeroed before and read
+    after. Returns {"results": per kernel, "launches": per wrapper}."""
+    from cmvs_pmvs_tpu_torch.ops import ablate as A
+    from cmvs_pmvs_tpu_torch.ops.fan import window_positions
+    from cmvs_pmvs_tpu_torch.scripts import ablate_common as AC
+    from cmvs_pmvs_tpu_torch.scripts import ablate_fan as D5
+    from cmvs_pmvs_tpu_torch.scripts import ablate_fan2 as D6
+    from cmvs_pmvs_tpu_torch.scripts import ablate_fan25 as D7
+
+    t0 = time.time()
+    i5, i6, i7 = (AC.to_device(d.make_inputs(), dev) for d in (D5, D6, D7))
+    log(f"ablation inputs: {time.time() - t0:.2f} s")
+    res = {}
+
+    a5 = (i5["atlas"], i5["tilemap"], i5["geom"])
+    errs = check_modes(
+        "K5", A.FAN_ABL_MODES,
+        lambda m: A.incc_fan_abl(*a5, fan=D5.FAN, mode=m),
+        lambda m: A.incc_fan_abl_plain(*a5, fan=D5.FAN, mode=m))
+    out = A.incc_fan_abl(*a5, fan=D5.FAN, mode="full")
+    rx, ry = A.fan_abl_positions(i5["geom"], *i5["tilemap"].shape, D5.FAN,
+                                 AC.WSIZE)
+    res["incc_fan_abl"] = dict(
+        max_abs_err=max(errs.values()),
+        plain_ms=timed(lambda: A.incc_fan_abl_plain(*a5, fan=D5.FAN,
+                                                    mode="full")),
+        **bound("incc_fan_abl", rx.numel(),
+                nbytes(i5["tilemap"], i5["geom"], out)
+                + tile_tap_bytes(i5["atlas"], i5["tilemap"], rx, ry)))
+
+    a6 = (i6["atlas"], i6["tilemap"], i6["rel"])
+    errs = check_modes(
+        "K6", A.INTERP_ABL_MODES,
+        lambda m: A.interp_abl(*a6, mode=m),
+        lambda m: A.interp_abl_plain(*a6, mode=m))
+    errs_tiny = check_modes(
+        "K6 tiny", A.INTERP_ABL_MODES,
+        lambda m: A.interp_abl(*a6, mode=m, tiny=True),
+        lambda m: A.interp_abl_plain(*a6, mode=m, tiny=True))
+    out = A.interp_abl(*a6, mode="full")
+    lib_ms, lib_err = grid_sample_k6(i6)
+    log(f"K6 full: F.grid_sample {lib_ms:.4f} ms, max|diff| from the "
+        f"kernel {lib_err:.3e}")
+    res["interp_abl"] = dict(
+        max_abs_err=max(*errs.values(), *errs_tiny.values()),
+        plain_ms=timed(lambda: A.interp_abl_plain(*a6, mode="full")),
+        library_ms=lib_ms,
+        **bound("interp_abl", i6["rel"][0].numel(),
+                nbytes(*a6[1:], out)
+                + tile_tap_bytes(i6["atlas"], i6["tilemap"], i6["rel"][0],
+                                 i6["rel"][1])))
+
+    errs = {}
+    for fan in D7.FANS:
+        a7 = (i7["atlas"], i7["tilemap"], i7[f"frames{fan}"])
+        errs.update({(fan, m): e for m, e in check_modes(
+            f"K7 fan={fan}", A.MOMENTS_ABL_MODES,
+            lambda m: A.moments_abl(*a7, mode=m, ppv=D7.PPV),
+            lambda m: A.moments_abl_plain(*a7, mode=m, ppv=D7.PPV),
+            rel=True).items()})
+    a7 = (i7["atlas"], i7["tilemap"], i7["frames4"])
+    out = A.moments_abl(*a7, mode="full")
+    rx, ry = window_positions(i7["frames4"], AC.WSIZE)
+    res["moments_abl"] = dict(
+        max_abs_err=max(errs.values()),
+        plain_ms=timed(lambda: A.moments_abl_plain(*a7, mode="full")),
+        **bound("moments_abl", rx.numel(),
+                nbytes(*a7[1:], out)
+                + tile_tap_bytes(i7["atlas"], i7["tilemap"], rx, ry)))
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    s5, s6 = D5.sweep(i5, log=log), D6.sweep(i6, log=log)
+    sweeps = {"incc_fan_abl": s5["random", "full"], "interp_abl": s6["full"],
+              "moments_abl": D7.sweep(i7, log=log)[4, "full"]}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"ablation sweeps: {time.time() - t0:.2f} s, kernel launches "
+        f"{launches}")
+    # dma_only's loads must survive the compiler: it keeps a real share
+    # of full's time (measured 55% for K5, 99% for K6 on an H100)
+    for name, dma, full in (("K5", s5["random", "dma_only"],
+                             s5["random", "full"]),
+                            ("K6", s6["dma_only"], s6["full"])):
+        if not dma[1] >= 0.2 * full[1]:
+            raise AssertionError(f"{name} dma_only {dma[1]} ms < 20% of "
+                                 f"full {full[1]} ms: loads elided?")
+    for name, (_, median) in sweeps.items():
+        res[name]["ms"] = median
+        b = res[name]
+        log(f"{name} full: kernel {median:.4f} ms (median) plain "
+            f"{b['plain_ms']:.4f} ms bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP)")
+        if launches[name] <= 0:
+            raise AssertionError(f"ablation: {name} was not launched: "
+                                 f"{launches}")
+    return {"results": res, "launches": launches}
+
+
 def kernel_wrappers():
+    from cmvs_pmvs_tpu_torch.ops.ablate import (incc_fan_abl, interp_abl,
+                                                moments_abl)
     from cmvs_pmvs_tpu_torch.ops.fan import incc_fan_v1
     from cmvs_pmvs_tpu_torch.ops.fan2 import incc_fan
     from cmvs_pmvs_tpu_torch.ops.incc import incc_blocks
     from cmvs_pmvs_tpu_torch.ops.windows import windows
     return {"incc_fan": incc_fan, "windows": windows,
-            "incc_fan_v1": incc_fan_v1, "incc_blocks": incc_blocks}
+            "incc_fan_v1": incc_fan_v1, "incc_blocks": incc_blocks,
+            "incc_fan_abl": incc_fan_abl, "interp_abl": interp_abl,
+            "moments_abl": moments_abl}
 
 
 def write_scene() -> tuple:
@@ -469,6 +655,9 @@ def main() -> int:
         dev, scene, root, "central", {"USE_FAN": False},
         need=("incc_blocks", "windows"), absent=("incc_fan", "incc_fan_v1"))
     shutil.rmtree(root, ignore_errors=True)
+    ablation = phase_ablation(dev)
+    runs["ablation"] = ablation["launches"]
+    abl = ablation["results"]
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",
@@ -477,7 +666,8 @@ def main() -> int:
                 "launches_by_run": {r: v[name] for r, v in runs.items()},
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"], "library_ms": None}
+                "bound_by": res["bound_by"],
+                "library_ms": res.get("library_ms")}
 
     print(json.dumps({"kernels": [
         row("incc_fan", "fan2.cu", "cmvs_pmvs_tpu/ops/pallas_fan2.py:115",
@@ -489,7 +679,13 @@ def main() -> int:
             "fan_v1", {**k3[4], "max_abs_err": max(
                 v["max_abs_err"] for v in k3.values())}),
         row("incc_blocks", "incc.cu", "cmvs_pmvs_tpu/ops/pallas_incc.py:32",
-            "central", k4)]}))
+            "central", k4),
+        row("incc_fan_abl", "ablate.cu", "scripts/ablate_fan.py:28",
+            "ablation", abl["incc_fan_abl"]),
+        row("interp_abl", "ablate.cu", "scripts/ablate_fan2.py:34",
+            "ablation", abl["interp_abl"]),
+        row("moments_abl", "ablate.cu", "scripts/ablate_fan25.py:35",
+            "ablation", abl["moments_abl"])]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

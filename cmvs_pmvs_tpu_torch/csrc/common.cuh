@@ -72,6 +72,92 @@ __device__ __forceinline__ void block_sample(const uint8_t* atlas, int H,
   }
 }
 
+// ---- The v1 tile rule (K3, K5-K7) ----------------------------------------
+// A pair samples one kTile x kTile-px tile of the atlas: a tap outside the
+// tile weighs 0, and a tile pixel past the atlas edge reads 0 (the
+// reference zero-pads its tiles).
+
+constexpr int kTile = 32;            // tile extent in px
+constexpr int kTileRow = 3 * kTile;  // bytes per staged tile row
+constexpr int kTileStride = 12;      // tile origin stride in px
+
+// A tile: pixel (0, 0) at `px`, rows `row` bytes apart, pixels (x, y) with
+// x < w, y < h readable (w, h < kTile where the tile passes the atlas edge).
+struct Tile {
+  const uint8_t* px;
+  int row, w, h;
+};
+
+// A tile staged in shared memory by `stage_tile`.
+__device__ __forceinline__ Tile staged_tile(const uint8_t* smem) {
+  return {smem, kTileRow, kTile, kTile};
+}
+
+// The tile at atlas pixel (ox, oy) of view n, read in place.
+__device__ __forceinline__ Tile atlas_tile(const uint8_t* atlas, int n, int H,
+                                           int WA, int ox, int oy) {
+  return {atlas + ((static_cast<long long>(n) * H + oy) * WA + ox) * 3,
+          WA * 3, WA - ox < kTile ? WA - ox : kTile,
+          H - oy < kTile ? H - oy : kTile};
+}
+
+// One RGB tap (x, y) of tile `t`; 0 outside it.
+__device__ __forceinline__ void tile_rgb(Tile t, int x, int y, float rgb[3]) {
+  const bool in = x >= 0 && x < t.w && y >= 0 && y < t.h;
+  const uint8_t* p = t.px + (in ? y * t.row + x * 3 : 0);
+  rgb[0] = in ? static_cast<float>(p[0]) : 0.f;
+  rgb[1] = in ? static_cast<float>(p[1]) : 0.f;
+  rgb[2] = in ? static_cast<float>(p[2]) : 0.f;
+}
+
+// One warp copies the tile at atlas pixel (ox, oy) of view n into shared
+// memory tile[kTile * kTileRow], byte by byte, pixels past the atlas edge
+// as 0. Returns the sum of the bytes this lane copied.
+__device__ __forceinline__ unsigned stage_tile(uint8_t* tile,
+                                               const uint8_t* atlas, int n,
+                                               int H, int WA, int ox, int oy,
+                                               int lane) {
+  unsigned sum = 0;
+  for (int i = lane; i < kTile * kTileRow; i += 32) {
+    const int y = oy + i / kTileRow;
+    const int xb = ox * 3 + i % kTileRow;
+    const uint8_t v =
+        (y >= 0 && y < H && xb >= 0 && xb < WA * 3)
+            ? atlas[(static_cast<long long>(n) * H + y) * WA * 3 + xb]
+            : 0;
+    tile[i] = v;
+    sum += v;
+  }
+  return sum;
+}
+
+// The TPU kernels' bilinear hat weight of a tap at distance d.
+__device__ __forceinline__ float hat(float d) {
+  return fmaxf(0.f, 1.f - fabsf(d));
+}
+
+// Bilinear RGB at tile-relative (rx, ry) with hat weights, interpolated in
+// y first, then in x: the order of the TPU kernels' y-interpolation and
+// fold matmuls (ops/ablate.tile_bilinear is the plain version).
+__device__ __forceinline__ void tile_bilinear(Tile t, float rx, float ry,
+                                              float val[3]) {
+  const float fx = floorf(rx), fy = floorf(ry);
+  const int lx = static_cast<int>(fx), ly = static_cast<int>(fy);
+  const float wx0 = hat(rx - fx), wx1 = hat(rx - (fx + 1.f));
+  const float wy0 = hat(ry - fy), wy1 = hat(ry - (fy + 1.f));
+  float p00[3], p01[3], p10[3], p11[3];  // p<dx><dy>
+  tile_rgb(t, lx, ly, p00);
+  tile_rgb(t, lx, ly + 1, p01);
+  tile_rgb(t, lx + 1, ly, p10);
+  tile_rgb(t, lx + 1, ly + 1, p11);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float row0 = wy0 * p00[c] + wy1 * p01[c];
+    const float row1 = wy0 * p10[c] + wy1 * p11[c];
+    val[c] = wx0 * row0 + wx1 * row1;
+  }
+}
+
 // Deviations from the per-channel mean of one warp's window win[s2 * 3]
 // (in place); returns the variance over all 3 * s2 values.
 __device__ __forceinline__ float center_window(float* win, int s2, int lane,

@@ -30,17 +30,8 @@
 
 namespace {
 
-constexpr int kTile = 32;            // tile extent in px
-constexpr int kRow = 3 * kTile;      // bytes per tile row
-
-__device__ __forceinline__ void tile_rgb(const uint8_t* tile, int x, int y,
-                                         float rgb[3]) {
-  const bool in = x >= 0 && x < kTile && y >= 0 && y < kTile;
-  const uint8_t* p = tile + (in ? y * kRow + x * 3 : 0);
-  rgb[0] = in ? static_cast<float>(p[0]) : 0.f;
-  rgb[1] = in ? static_cast<float>(p[1]) : 0.f;
-  rgb[2] = in ? static_cast<float>(p[2]) : 0.f;
-}
+using cmvs::kTile;
+using cmvs::kTileRow;
 
 __global__ void fan_v1_kernel(const uint8_t* __restrict__ atlas, int N,
                               int H, int WA, const int* __restrict__ vid,
@@ -59,17 +50,12 @@ __global__ void fan_v1_kernel(const uint8_t* __restrict__ atlas, int N,
   const long long pair = static_cast<long long>(b) * T + v;
   const int n = cmvs::clampi(vid[pair], 0, N - 1);
   const int ox = tile_org[pair * 2], oy = tile_org[pair * 2 + 1];
-  uint8_t* tile = tiles + v * kTile * kRow;
+  uint8_t* tile = tiles + v * kTile * kTileRow;
+  const cmvs::Tile tl = cmvs::staged_tile(tile);
   float* win = sh + v * s2 * 3;
   const float* ref = sh;                                  // warp 0's window
 
-  for (int i = lane; i < kTile * kRow; i += 32) {
-    const int y = oy + i / kRow;
-    const int xb = ox * 3 + i % kRow;
-    tile[i] = (y >= 0 && y < H && xb >= 0 && xb < WA * 3)
-                  ? atlas[(static_cast<long long>(n) * H + y) * WA * 3 + xb]
-                  : 0;
-  }
+  cmvs::stage_tile(tile, atlas, n, H, WA, ox, oy, lane);
   __syncwarp();
 
   const int margin = wsize / 2;
@@ -90,10 +76,10 @@ __global__ void fan_v1_kernel(const uint8_t* __restrict__ atlas, int N,
         const float dx1 = x - fx, dy1 = y - fy;
         const float dx0 = 1.f - dx1, dy0 = 1.f - dy1;
         float c00[3], c10[3], c01[3], c11[3];
-        tile_rgb(tile, lx, ly, c00);
-        tile_rgb(tile, lx + 1, ly, c10);
-        tile_rgb(tile, lx, ly + 1, c01);
-        tile_rgb(tile, lx + 1, ly + 1, c11);
+        cmvs::tile_rgb(tl, lx, ly, c00);
+        cmvs::tile_rgb(tl, lx + 1, ly, c10);
+        cmvs::tile_rgb(tl, lx, ly + 1, c01);
+        cmvs::tile_rgb(tl, lx + 1, ly + 1, c11);
 #pragma unroll
         for (int c = 0; c < 3; ++c)
           val[c] = c00[c] * dx0 * dy0 + c10[c] * dx1 * dy0 +
@@ -138,7 +124,7 @@ extern "C" int cmvs_fan_v1_incc(const void* atlas, int N, int H, int WA,
                                 void* stream) {
   const int s2 = wsize * wsize;
   const size_t shmem = (static_cast<size_t>(T) * s2 * 3 + T) * sizeof(float) +
-                       static_cast<size_t>(T) * kTile * kRow;
+                       static_cast<size_t>(T) * kTile * kTileRow;
   const cudaError_t attr = cmvs::allow_shared(fan_v1_kernel, shmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   fan_v1_kernel<<<B, 32 * T, shmem, static_cast<cudaStream_t>(stream)>>>(

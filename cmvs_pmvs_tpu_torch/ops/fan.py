@@ -153,11 +153,25 @@ def robust_incc_vs_ref(tex, ok):
     return xx / (1.0 + 3.0 * xx)
 
 
+def tile_px(atlas_u8, n, ox, oy, tx, ty):
+    """RGB [..., 3] f32 of pixel (tx, ty) of the TILE_PX tile at atlas
+    pixel (ox, oy) of view n (all int64, broadcast): 0 outside the tile
+    or past the atlas edge (csrc/common.cuh `tile_rgb`)."""
+    h, wa = atlas_u8.shape[1], atlas_u8.shape[2]
+    y = oy + ty
+    x = ox + tx
+    inside = ((tx >= 0) & (tx < TILE_PX) & (ty >= 0) & (ty < TILE_PX)
+              & (y < h) & (x < wa))
+    val = atlas_u8[n, y.clamp(0, h - 1), x.clamp(0, wa - 1)]
+    return torch.where(inside[..., None], val.to(torch.float32),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=atlas_u8.device))
+
+
 def _tile_bilinear(atlas_u8, n, org, rx, ry):
     """Bilinear RGB [..., 3] at tile-relative positions rx/ry of the
     TILE_PX tile at atlas[n, org_y:, org_x:]; taps outside the tile or
     past the atlas edge read 0. Operation order of csrc/fan.cu."""
-    h, wa = atlas_u8.shape[1], atlas_u8.shape[2]
     fx = torch.floor(rx)
     fy = torch.floor(ry)
     lx = fx.to(torch.int64)
@@ -170,14 +184,7 @@ def _tile_bilinear(atlas_u8, n, org, rx, ry):
     oy = org[..., 1].long()
 
     def px(tx, ty):
-        y = oy + ty
-        x = ox + tx
-        inside = ((tx >= 0) & (tx < TILE_PX) & (ty >= 0) & (ty < TILE_PX)
-                  & (y < h) & (x < wa))
-        val = atlas_u8[n, y.clamp(0, h - 1), x.clamp(0, wa - 1)]
-        return torch.where(inside[..., None], val.to(torch.float32),
-                           torch.zeros((), dtype=torch.float32,
-                                       device=rx.device))
+        return tile_px(atlas_u8, n, ox, oy, tx, ty)
 
     return (px(lx, ly) * dx0 * dy0 + px(lx + 1, ly) * dx1 * dy0
             + px(lx, ly + 1) * dx0 * dy1 + px(lx + 1, ly + 1) * dx1 * dy1)

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("fan2.cu", "fan.cu", "incc.cu", "windows.cu")
+SOURCES = ("fan2.cu", "fan.cu", "incc.cu", "windows.cu", "ablate.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC")
@@ -40,6 +40,11 @@ _SIGNATURES = {
                          _P],
     "cmvs_windows": [_P, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong,
                      _I, _I, _P],
+    "cmvs_fan_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cmvs_interp_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    "cmvs_moments_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _P],
 }
 
 

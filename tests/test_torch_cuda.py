@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import cmvs_pmvs_tpu_torch.ops.refine as TR  # noqa: E402
 from cmvs_pmvs_tpu_torch.geom import build_camera_set  # noqa: E402
 from cmvs_pmvs_tpu_torch.image import build_pyramids  # noqa: E402
+from cmvs_pmvs_tpu_torch.ops import ablate as A  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops import fan as F1, fan2, incc  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops import windows as W  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops.refine import _patch_axes  # noqa: E402
@@ -152,6 +153,78 @@ def test_windows_kernel_matches_plain(setup):
     assert W.windows.launches == before + 1
     want = W.windows_plain(*args, t=T)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.fixture(scope="module")
+def ablation(setup):
+    """K5-K7 inputs at 16 patches x 6 views on the plane scene's atlas:
+    random tiles (some past the atlas edge), sample positions reaching
+    2 px past their tile."""
+    dev = setup["dev"]
+    atlas = setup["pyr"].atlas_u8
+    ty, tx = F1.tile_counts(atlas.shape[1], atlas.shape[2])
+    rng = np.random.default_rng(3)
+    b = 16
+    tilemap = ((rng.integers(0, atlas.shape[0], (b, T)) << 20)
+               | (rng.integers(0, ty, (b, T)) << 10)
+               | rng.integers(0, tx, (b, T))).astype(np.int32)
+    geom = np.zeros((4, b * T * 4, 4), np.float32)
+    geom[0:2, :, 0] = rng.uniform(2.0, 29.0, (2, b * T * 4))
+    geom[2:4, :, 0] = rng.uniform(0.0, 1.0, (2, b * T * 4))
+    geom[0, :, 1], geom[1, :, 2] = rng.uniform(0.75, 1.25, (2, b * T * 4))
+    geom[1, :, 1], geom[0, :, 2] = rng.uniform(-0.25, 0.25, (2, b * T * 4))
+    frames = {fan: np.concatenate(
+        [rng.uniform(4.0, 26.0, (b, T, fan, 2)),
+         rng.uniform(0.75, 1.25, (b, T, fan, 4))], -1) for fan in (4, 1)}
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    return dict(atlas=atlas, tilemap=t(tilemap, torch.int32),
+                geom=t(geom.reshape(4, -1)),
+                rel=t(rng.uniform(-2.0, 34.0, (2, b, T, 4, 49))),
+                frames={k: t(v) for k, v in frames.items()})
+
+
+def _launched(wrapper, *args, **kw):
+    before = wrapper.launches
+    out = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("mode", A.FAN_ABL_MODES)
+def test_incc_fan_abl_kernel_matches_plain(ablation, mode):
+    s = ablation
+    args = (s["atlas"], s["tilemap"], s["geom"])
+    got = _launched(A.incc_fan_abl, *args, fan=4, mode=mode)
+    want = A.incc_fan_abl_plain(*args, fan=4, mode=mode)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+@pytest.mark.parametrize("mode", A.INTERP_ABL_MODES)
+def test_interp_abl_kernel_matches_plain(ablation, mode, tiny):
+    s = ablation
+    args = (s["atlas"], s["tilemap"], s["rel"])
+    got = _launched(A.interp_abl, *args, mode=mode, tiny=tiny)
+    want = A.interp_abl_plain(*args, mode=mode, tiny=tiny)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("fan", [4, 1])
+@pytest.mark.parametrize("mode", A.MOMENTS_ABL_MODES)
+def test_moments_abl_kernel_matches_plain(ablation, mode, fan):
+    """1e-4 relative: 49-sample sums of squares reach ~3e6."""
+    s = ablation
+    args = (s["atlas"], s["tilemap"], s["frames"][fan])
+    got = _launched(A.moments_abl, *args, mode=mode)
+    want = A.moments_abl_plain(*args, mode=mode)
+    assert got.shape == want.shape
+    assert float(((got - want).abs() / want.abs().clamp(min=1.0)).max()) \
+        <= 1e-4
 
 
 def test_wrappers_reject_bad_arguments(setup):
