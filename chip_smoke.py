@@ -2,9 +2,15 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --against DIR   # also time DIR's K1 and K3
+
 Run from the root of a checkout on a machine with one CUDA GPU (sm_90a,
-e.g. an H100) and the CUDA toolkit. Phases, each of which raises on
-failure (the script then exits non-zero):
+e.g. an H100) and the CUDA toolkit. With --against, DIR is another
+checkout of the repository (e.g. the parent commit, unpacked with `git
+archive`); its kernel library is built from its own sources, and its K1
+and K3 are timed beside this tree's on the same inputs, in turns (DIR,
+this, this, DIR), in phases 3, 5, 6 and 8. Phases, each of which raises
+on failure (the script then exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the hand-written kernels (cmvs_pmvs_tpu_torch/csrc)
@@ -18,7 +24,10 @@ failure (the script then exits non-zero):
    configuration (fan LM with K1, windows with K2): occluded scene, 12
    views at 640x480, level 0, 3 expand rounds. Checks the kernel launch
    counters, the patch count, the distance to the true surface and the
-   written .patch/.ply/.pset files.
+   written .patch/.ply/.pset files. Every K1 and K2 launch's arguments
+   are kept (the wrappers' `capture` lists) and replayed after the run:
+   each kernel's summed device time at the run's own shapes (K1 split
+   by fan) beside the sum of the calls' bounds.
 6. K3 (refine-fan INCC v1, ops/fan.incc_fan_v1) against its plain
    version at phase 3's shape, fan 4 and fan 1; bar 1e-4 on valid pairs.
    Also K3 against K1 on the same inputs, with the count of probes that
@@ -26,10 +35,11 @@ failure (the script then exits non-zero):
 7. K4 (fused block INCC, ops/incc.incc_blocks) against its plain
    version: 8192 patches x 6 views, wsize 7; bar 1e-4.
 8. Phase 5's protocol with refine.USE_FAN_V2 = False (the fan LM on K3):
-   K3 launched, K1 not; the same bars.
+   K3 launched, K1 not; the same bars; K3's launches replayed as K1's
+   are in phase 5.
 9. Phase 5's protocol with refine.USE_FAN = False (the central-
    difference LM on the card, its objective on K4): K4 launched; the
-   same bars.
+   same bars; K4's launches replayed.
 10. The fan-kernel ablations K5, K6, K7 (ops/ablate) on the inputs of
    their drivers (cmvs_pmvs_tpu_torch/scripts/ablate_fan*.py: 8192
    patches x 6 views, fan 4; K7 also fan 1): every mode against its
@@ -37,8 +47,11 @@ failure (the script then exits non-zero):
    K6 full beside F.grid_sample on pre-gathered tiles; then each
    driver's own timed sweep of every mode.
 
-Every kernel's launch counter is set to 0 just before each protocol run
-and before the ablation sweeps, and read just after. The line before
+Kernel times (`timed`) are CUDA-event medians of calls each queued
+behind a device spin, so the host's part of a call overlaps the spin and
+the events time the device's work. Every kernel's launch counter is set
+to 0 just before each protocol run and before the ablation sweeps, and
+read just after; replays and comparisons do not count. The line before
 the last is a JSON object with each kernel's launches (in the run whose
 path it serves, and per run), error, times, and its bound: the larger
 of its compulsory bytes over the H100's 3.35 TB/s and its float32
@@ -49,6 +62,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -60,6 +74,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4
 BATCH = 8192
+SLEEP_CYCLES = 400_000         # device spin before each timed call (~0.2 ms)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # float32 operations per (pair[, probe], sample) of each kernel:
@@ -96,10 +111,77 @@ def phase_device():
     return smi
 
 
-def timed(fn) -> float:
-    """Median milliseconds of `fn` over 7 synchronized runs (CUDA events)."""
+def timed(fn, samples: int = 7) -> float:
+    """Median device milliseconds of `fn` over `samples` runs: CUDA events
+    around each call, queued behind a device spin so that the call's host
+    work (argument checks, allocation, launch) is hidden."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def call_ms(fn) -> float:
+    """Median milliseconds of `fn` with its host work included (CUDA
+    events right around each call, no spin): how PRs 1-3 timed kernels."""
     from cmvs_pmvs_tpu_torch.scripts.ablate_common import time_ms
     return time_ms(fn, samples=7)[1]
+
+
+def load_against(path: str):
+    """The kernel library of the checkout at `path`, built from its own
+    sources by its own ops/kernels.py."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "against_kernels",
+        os.path.join(path, "cmvs_pmvs_tpu_torch", "ops", "kernels.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.lib()
+
+
+def raw_fan(lib, atlas, *rest):
+    """K1 (vid, frames, ok, wsize) or K3 (vid, tile_org, frames, ok,
+    wsize) of the kernel library `lib`, launched without the wrapper."""
+    import torch
+    frames, ok, wsize = rest[-3:]
+    b, t, fan, _ = frames.shape
+    n, h, wa, _ = atlas.shape
+    out = torch.empty((b, t, fan), dtype=torch.float32, device=frames.device)
+    fn = lib.cmvs_fan_incc if len(rest) == 4 else lib.cmvs_fan_v1_incc
+    rc = fn(atlas.data_ptr(), n, h, wa, *(x.data_ptr() for x in rest[:-1]),
+            out.data_ptr(), b, t, fan, wsize,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"against library: cudaError {rc}")
+    return out
+
+
+def in_turns(this, other) -> dict:
+    """Device ms of `this` and, where `other` is given, of `other` too, in
+    turns other, this, this, other."""
+    if other is None:
+        return {"ms": timed(this)}
+    o1, t1, t2, o2 = timed(other), timed(this), timed(this), timed(other)
+    return {"ms": t1, "ms_repeat": t2, "against_ms": [o1, o2]}
+
+
+def turns_text(r: dict) -> str:
+    if "against_ms" not in r:
+        return f"kernel {r['ms']:.4f} ms"
+    return (f"kernel {r['ms']:.4f} / {r['ms_repeat']:.4f} ms, against "
+            f"{r['against_ms'][0]:.4f} / {r['against_ms'][1]:.4f} ms")
 
 
 def atlas_bytes(atlas, n, y, x) -> int:
@@ -186,13 +268,13 @@ def fan_inputs(dev):
     return pyr, out
 
 
-def fan_taps(frames, ok, tile_org=None):
+def fan_taps(frames, ok, tile_org=None, wsize: int = 7):
     """Rows, columns and keep-masks of the four bilinear taps of every
     sample of every ok probe; with tile_org, only the taps inside the
     pair's tile are kept."""
     import torch
     from cmvs_pmvs_tpu_torch.ops.fan import TILE_PX, window_positions
-    x, y = window_positions(frames, 7)                      # [B,T,F,S2]
+    x, y = window_positions(frames, wsize)                  # [B,T,F,S2]
     keep = ok[..., None].expand_as(x)
     fx, fy = torch.floor(x).long(), torch.floor(y).long()
     cols = [fx, fx + 1, fx, fx + 1]
@@ -206,16 +288,24 @@ def fan_taps(frames, ok, tile_org=None):
     return rows, cols, masks
 
 
-def fan_atlas_bytes(atlas, vid, frames, ok, tile_org=None) -> int:
+def fan_atlas_bytes(atlas, vid, frames, ok, tile_org=None,
+                    wsize: int = 7) -> int:
     import torch
-    rows, cols, masks = fan_taps(frames, ok, tile_org)
+    rows, cols, masks = fan_taps(frames, ok, tile_org, wsize)
     n = vid[:, :, None, None].expand_as(rows[0])
     return atlas_bytes(atlas, torch.cat([n[m] for m in masks]),
                        torch.cat([r[m] for r, m in zip(rows, masks)]),
                        torch.cat([c[m] for c, m in zip(cols, masks)]))
 
 
-def phase_k1(pyr, inputs):
+def against_err(other, args, want, pair) -> float | None:
+    """max |diff| of the `other` library's kernel from the plain version."""
+    if other is None:
+        return None
+    return float((raw_fan(other, *args) - want).abs()[pair].max())
+
+
+def phase_k1(pyr, inputs, other=None):
     import torch
     from cmvs_pmvs_tpu_torch.ops import fan2
     out = {}
@@ -226,23 +316,28 @@ def phase_k1(pyr, inputs):
         torch.cuda.synchronize()
         pair = ok & ok[:, 0:1, :]
         err = float((got - want).abs()[pair].max())
-        ms = timed(lambda: fan2.incc_fan(*args))
+        err_o = against_err(other, args, want, pair)
+        turns = in_turns(lambda: fan2.incc_fan(*args), other and (
+            lambda: raw_fan(other, *args)))
+        host_ms = call_ms(lambda: fan2.incc_fan(*args))
         plain_ms = timed(lambda: fan2.incc_fan_plain(*args))
         b = bound("incc_fan", frames.shape[:3].numel() * 49,
                   nbytes(vid, frames, ok, got)
                   + fan_atlas_bytes(pyr.atlas_u8, vid, frames, ok))
         log(f"K1 fan={fan}: B={BATCH} T=6 valid pairs "
             f"{float(pair.float().mean()):.4f} max|diff| {err:.3e} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
-            f"{b['flops']} FLOP)")
+            + (f"(against {err_o:.3e}) " if other is not None else "")
+            + f"{turns_text(turns)}, with host {host_ms:.4f} ms; plain "
+            f"{plain_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP)")
         if not err <= TOL:
             raise AssertionError(f"K1 fan={fan} differs: {err} > {TOL}")
-        out[fan] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+        out[fan] = dict(max_abs_err=err, plain_ms=plain_ms, host_ms=host_ms,
+                        **turns, **b)
     return out
 
 
-def phase_k3(pyr, inputs):
+def phase_k3(pyr, inputs, other=None):
     import torch
     from cmvs_pmvs_tpu_torch.ops import fan, fan2
     out = {}
@@ -256,23 +351,29 @@ def phase_k3(pyr, inputs):
         torch.cuda.synchronize()
         pair = ok & ok[:, 0:1, :]
         err = float((got - want).abs()[pair].max())
+        err_o = against_err(other, args, want, pair)
         vs_k1 = float((got - k1).abs()[pair].max())
-        ms = timed(lambda: fan.incc_fan_v1(*args))
+        turns = in_turns(lambda: fan.incc_fan_v1(*args), other and (
+            lambda: raw_fan(other, *args)))
+        host_ms = call_ms(lambda: fan.incc_fan_v1(*args))
         plain_ms = timed(lambda: fan.incc_fan_v1_plain(*args))
         k1_ms = timed(lambda: fan2.incc_fan(pyr.atlas_u8, vid, frames, ok,
                                             7))
         b = bound("incc_fan_v1", frames.shape[:3].numel() * 49,
                   nbytes(vid, org, frames, ok, got)
                   + fan_atlas_bytes(pyr.atlas_u8, vid, frames, ok, org))
-        log(f"K3 fan={nfan}: B={BATCH} T=6 max|diff| {err:.3e} kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms K1 {k1_ms:.4f} ms bound "
+        log(f"K3 fan={nfan}: B={BATCH} T=6 max|diff| {err:.3e} "
+            + (f"(against {err_o:.3e}) " if other is not None else "")
+            + f"{turns_text(turns)}, with host {host_ms:.4f} ms; plain "
+            f"{plain_ms:.4f} ms K1 {k1_ms:.4f} ms bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
             f"{b['flops']} FLOP); vs K1 max|diff| {vs_k1:.3e}, "
             f"{int(stats['clipped'])} of {int(stats['probes'])} ok probes "
             f"left their probe-0 tile")
         if not err <= TOL:
             raise AssertionError(f"K3 fan={nfan} differs: {err} > {TOL}")
-        out[nfan] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+        out[nfan] = dict(max_abs_err=err, plain_ms=plain_ms, host_ms=host_ms,
+                         **turns, **b)
     return out
 
 
@@ -562,7 +663,8 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     """One full-protocol run with the refine module's `flags` set (and
     restored after): every kernel counter zeroed just before, read just
     after; the kernels in `need` must have launched, those in `absent`
-    must not."""
+    must not. Returns the launches and the captured launch arguments of
+    K1-K4."""
     import torch
     from cmvs_pmvs_tpu_torch.io.patches import read_patch_file, read_pset
     from cmvs_pmvs_tpu_torch.io.ply import read_ply_xyz
@@ -577,6 +679,9 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
         setattr(refine, k, v)
     windows.clip_stats = {}
     incc_fan_v1.clip_stats = {}
+    kept = ("incc_fan", "incc_fan_v1", "windows", "incc_blocks")
+    for k in kept:
+        wrappers[k].capture = []
     for w in wrappers.values():
         w.launches = 0
     try:
@@ -590,6 +695,9 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     finally:
         for k, v in saved.items():
             setattr(refine, k, v)
+        calls = {k: wrappers[k].capture for k in kept}
+        for k in kept:
+            wrappers[k].capture = None
     clip = {k: int(v) for k, v in windows.clip_stats.items()}
     clip_v1 = {k: int(v) for k, v in incc_fan_v1.clip_stats.items()}
     windows.clip_stats = None
@@ -627,10 +735,104 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     if any(c != n for c in counts.values()):
         raise AssertionError(f"{label}: output counts {counts} != {n}")
     log(f"protocol[{label}]: outputs read back {counts}")
-    return launches
+    return launches, calls
+
+
+def replay(calls, launch) -> dict:
+    """Device time of every captured call (args, kwargs) replayed through
+    `launch`, each queued behind a device spin: the total and, by fan
+    (None for K2 and K4), launches and ms."""
+    import torch
+    timed_calls = []
+    for args, kwargs in calls:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        launch(*args, **kwargs)
+        end.record()
+        fan = args[-3].shape[2] if not kwargs else None
+        timed_calls.append((fan, start, end))
+    torch.cuda.synchronize()
+    by_fan = {}
+    for fan, start, end in timed_calls:
+        n, ms = by_fan.get(fan, (0, 0.0))
+        by_fan[fan] = (n + 1, ms + start.elapsed_time(end))
+    return {"ms": sum(ms for _, ms in by_fan.values()), "by_fan": by_fan}
+
+
+def call_bound(name: str, args: tuple, kwargs: dict) -> float:
+    """`bound` of one captured call (ms), counted from its own inputs."""
+    atlas = args[0]
+    if name in ("incc_fan", "incc_fan_v1"):
+        vid, *org, frames, ok, wsize = args[1:]
+        pairs = frames.shape[:3].numel()
+        return bound(name, pairs * wsize * wsize,
+                     nbytes(vid, *org, frames, ok) + 4 * pairs
+                     + fan_atlas_bytes(atlas, vid, frames, ok,
+                                       org[0] if org else None,
+                                       wsize))["bound_ms"]
+    relx, ok = args[2], args[4]
+    out = relx.numel() * 3 if name == "windows" else ok.numel()
+    return bound(name, relx.numel(), nbytes(*args[1:]) + 4 * out
+                 + block_atlas_bytes(*args))["bound_ms"]
+
+
+def protocol_kernel_time(label: str, name: str, calls: list, other=None):
+    """Replay a protocol run's captured launches of kernel `name` and sum
+    their device time (fan kernels: split by fan) and their bounds; with
+    `other` (K1, K3), in turns other, this, this, other with the other
+    library's kernel on the same arguments, whose outputs must agree with
+    this tree's within TOL on valid pairs."""
+    import torch
+    wrapper = kernel_wrappers()[name]
+    if other is None:
+        runs = [replay(calls, wrapper)]
+    else:
+        err = 0.0
+        for args, _ in calls:
+            ok = args[-2]
+            pair = ok & ok[:, 0:1, :]
+            if bool(pair.any()):
+                err = max(err, float((wrapper(*args) - raw_fan(other, *args))
+                                     .abs()[pair].max()))
+        log(f"protocol[{label}]: {name} against the other library over "
+            f"{len(calls)} calls: max|diff| {err:.3e}")
+        if not err <= TOL:
+            raise AssertionError(f"{label}: {name} differs from the other "
+                                 f"library: {err} > {TOL}")
+        runs = [replay(calls, lambda *a: raw_fan(other, *a)),
+                replay(calls, wrapper), replay(calls, wrapper),
+                replay(calls, lambda *a: raw_fan(other, *a))]
+        runs = [runs[1], runs[2], runs[0], runs[3]]
+    bound_ms = sum(call_bound(name, *c) for c in calls)
+    names = ["kernel", "kernel", "against", "against"]
+    log(f"protocol[{label}]: {name} device time over the run's "
+        f"{len(calls)} launches (replayed), bound {bound_ms:.4f} ms: "
+        + "; ".join(f"{n} {r['ms']:.4f} ms (" + ", ".join(
+            f"fan {f}: {c} launches {ms:.4f} ms"
+            for f, (c, ms) in r["by_fan"].items() if f is not None) + ")"
+            for n, r in zip(names, runs)))
+    out = {"protocol_ms": runs[0]["ms"], "protocol_bound_ms": bound_ms,
+           "protocol_by_fan": {str(f): v for f, v in
+                               runs[0]["by_fan"].items() if f is not None}}
+    if other is not None:
+        out["protocol_ms_repeat"] = runs[1]["ms"]
+        out["protocol_against_ms"] = [runs[2]["ms"], runs[3]["ms"]]
+    return out
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="another checkout whose K1 and K3 are timed "
+                         "beside this tree's")
+    opts = ap.parse_args()
+    if not os.path.isdir(os.path.join(ROOT, "cmvs_pmvs_tpu_torch")):
+        print("chip_smoke: the port (cmvs_pmvs_tpu_torch/) is not beside "
+              "this script; run it from the root of a checkout",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     import torch
     smi = phase_device()
@@ -639,21 +841,36 @@ def main() -> int:
     kernels.lib()
     log(f"build: {time.time() - t0:.2f} s (nvcc {kernels.build_seconds:.2f}"
         f" s) -> {kernels.library_path().relative_to(ROOT)}")
+    other = None
+    if opts.against:
+        t0 = time.time()
+        other = load_against(os.path.abspath(opts.against))
+        log(f"against: {opts.against} library built/loaded in "
+            f"{time.time() - t0:.2f} s")
     dev = torch.device("cuda")
     pyr, fan_in = fan_inputs(dev)
-    k1 = phase_k1(pyr, fan_in)
+    k1 = phase_k1(pyr, fan_in, other)
     k2 = phase_k2(dev)
     scene, root = write_scene()
-    runs = {"default": phase_protocol(dev, scene, root, "default", {},
-                                      need=("incc_fan", "windows"))}
-    k3 = phase_k3(pyr, fan_in)
+    runs = {}
+    runs["default"], calls = phase_protocol(
+        dev, scene, root, "default", {}, need=("incc_fan", "windows"))
+    k1[4].update(protocol_kernel_time("default", "incc_fan",
+                                      calls["incc_fan"], other))
+    k2.update(protocol_kernel_time("default", "windows", calls["windows"]))
+    k3 = phase_k3(pyr, fan_in, other)
     k4 = phase_k4(dev)
-    runs["fan_v1"] = phase_protocol(
+    runs["fan_v1"], calls = phase_protocol(
         dev, scene, root, "fan_v1", {"USE_FAN_V2": False},
         need=("incc_fan_v1", "windows"), absent=("incc_fan",))
-    runs["central"] = phase_protocol(
+    k3[4].update(protocol_kernel_time("fan_v1", "incc_fan_v1",
+                                      calls["incc_fan_v1"], other))
+    runs["central"], calls = phase_protocol(
         dev, scene, root, "central", {"USE_FAN": False},
         need=("incc_blocks", "windows"), absent=("incc_fan", "incc_fan_v1"))
+    k4.update(protocol_kernel_time("central", "incc_blocks",
+                                   calls["incc_blocks"]))
+    del calls
     shutil.rmtree(root, ignore_errors=True)
     ablation = phase_ablation(dev)
     runs["ablation"] = ablation["launches"]
@@ -667,7 +884,9 @@ def main() -> int:
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"],
-                "library_ms": res.get("library_ms")}
+                "library_ms": res.get("library_ms"),
+                **{k: res[k] for k in ("protocol_ms", "protocol_bound_ms")
+                   if k in res}}
 
     print(json.dumps({"kernels": [
         row("incc_fan", "fan2.cu", "cmvs_pmvs_tpu/ops/pallas_fan2.py:115",

@@ -178,6 +178,357 @@ __device__ __forceinline__ float center_window(float* win, int s2, int lane,
   return warp_sum(sq) / (3.f * s2);
 }
 
+// ---- The refine-fan INCC body (K1: csrc/fan2.cu, K3: csrc/fan.cu) --------
+// One warp per (patch b, probe f) walks the patch's T views, with no
+// shared memory and no block barrier. Lane l owns samples l, l + 32, ...
+// of every window. With kHeld > 0 samples per lane (windows of up to
+// 32 * kHeld samples) the values stay in registers, view 0's deviations
+// for the whole walk, so each view's cross-sum with view 0 is lane-local;
+// with kHeld = 0 (larger windows) each pass recomputes its samples from
+// the atlas. Two-pass moments, as in the plain versions: one butterfly
+// for a view's three channel sums, one for its squared and cross sums.
+
+constexpr int kFanWarps = 8;      // warps per block
+constexpr int kFanMaxWsize = 63;  // the largest window K1 and K3 take
+// Sample positions are clamped to +-2^21 px, where floor_int is exact; a
+// tap that far out is clamped to the atlas edge (K1) or masked (K3) all
+// the same.
+constexpr float kFanPosMax = 2097152.f;
+
+// Butterfly sum of M values over the warp; every lane gets the totals.
+template <int M>
+__device__ __forceinline__ void warp_sum_n(float (&v)[M]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+  }
+}
+
+// Byte k of w as an exact float: the byte becomes the low mantissa bits
+// of 2^23 (one PRMT) and 2^23 is subtracted (one FADD). A shift, mask and
+// I2F would cost a conversion, which runs at 1/8 of the FP32 rate.
+__device__ __forceinline__ float byte_float(unsigned w, unsigned k) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | k)) -
+         8388608.f;
+}
+
+// floor(x) as a float, and as an int in i, for |x| < 2^22: x + 1.5 * 2^23
+// rounded down has an ulp of 1, so it holds floor(x) exactly in its low
+// mantissa bits. Three full-rate instructions instead of two conversions.
+__device__ __forceinline__ float floor_int(float x, int& i) {
+  const float m = __fadd_rd(x, 12582912.f);
+  i = __float_as_int(m) - 0x4B400000;
+  return m - 12582912.f;
+}
+
+// RGB of the atlas pixel at byte p and of its right neighbour, or of the
+// same pixel again where `adjacent` is false (the clamped right edge).
+// wide: the two aligned 8-byte words from p's word on lie inside the
+// atlas; the first (and the second where the 6 bytes cross it) is read
+// and the bytes are cut out with funnel shifts. Else byte by byte.
+__device__ __forceinline__ void row_pair(const uint8_t* p, bool adjacent,
+                                         bool wide, float a[3], float b[3]) {
+  unsigned lo, hi;  // bytes 0-3 and 4-7 from p
+  if (wide) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+    const uint2* w =
+        reinterpret_cast<const uint2*>(addr & ~static_cast<uintptr_t>(7));
+    const unsigned off = static_cast<unsigned>(addr & 7);
+    const uint2 w0 = __ldg(w);
+    const uint2 w1 = off > 2 ? __ldg(w + 1) : make_uint2(0u, 0u);
+    const unsigned r0 = off < 4 ? w0.x : w0.y;
+    const unsigned r1 = off < 4 ? w0.y : w1.x;
+    const unsigned r2 = off < 4 ? w1.x : w1.y;
+    lo = __funnelshift_r(r0, r1, (off & 3) * 8);
+    hi = __funnelshift_r(r1, r2, (off & 3) * 8);
+  } else {
+    const unsigned b3 = adjacent ? p[3] : 0u;
+    lo = p[0] | p[1] << 8 | p[2] << 16 | b3 << 24;
+    hi = adjacent ? p[4] | p[5] << 8 : 0u;
+  }
+  const unsigned pb = __byte_perm(lo, hi, adjacent ? 0x0543u : 0x0210u);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    a[c] = byte_float(lo, c);
+    b[c] = byte_float(pb, c);
+  }
+}
+
+// A warp's view metadata, loaded once: lane j < T holds view j's plane,
+// frame (orgx, orgy, dxx, dxy, dyx, dyy), ok flag and (K3) tile origin.
+struct FanMeta {
+  int n, ox, oy;
+  float fr[6];
+  bool ok;
+};
+
+template <bool kV1>
+__device__ __forceinline__ FanMeta fan_meta(int N, const int* vid,
+                                            const int* tile_org,
+                                            const float* frames,
+                                            const uint8_t* ok, int b, int T,
+                                            int fan, int f, int lane) {
+  FanMeta m = {0, 0, 0, {}, false};
+  if (lane < T) {
+    const long long pair = static_cast<long long>(b) * T + lane;
+    const long long probe = pair * fan + f;
+    m.n = clampi(vid[pair], 0, N - 1);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) m.fr[i] = frames[probe * 6 + i];
+    m.ok = ok[probe] != 0;
+    if (kV1) {
+      m.ox = tile_org[pair * 2];
+      m.oy = tile_org[pair * 2 + 1];
+    }
+  }
+  return m;
+}
+
+// View v of the warp's patch at its probe, handed to every lane by
+// shuffles: its atlas plane, frame, ok flag, the rows [row_lo, row_hi]
+// whose taps may be read as aligned words (not the atlas's first row nor
+// its last, so the words stay inside it) and, for K3, the pair's probe-0
+// tile (origin ox, oy; readable extent tw, th).
+struct FanView {
+  const uint8_t* img;
+  float fr[6];
+  bool ok;
+  int row_lo, row_hi, ox, oy, tw, th;
+};
+
+template <bool kV1>
+__device__ __forceinline__ FanView fan_view(const FanMeta& m,
+                                            const uint8_t* atlas, int N,
+                                            int H, int WA, int v) {
+  constexpr unsigned kAll = 0xffffffffu;
+  FanView fv;
+  const int n = __shfl_sync(kAll, m.n, v);
+  fv.img = atlas + static_cast<long long>(n) * H * WA * 3;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) fv.fr[i] = __shfl_sync(kAll, m.fr[i], v);
+  fv.ok = __shfl_sync(kAll, static_cast<int>(m.ok), v) != 0;
+  fv.row_lo = n == 0 ? 1 : 0;
+  fv.row_hi = WA < 5 ? -1 : (n == N - 1 ? H - 2 : H - 1);
+  fv.ox = kV1 ? __shfl_sync(kAll, m.ox, v) : 0;
+  fv.oy = kV1 ? __shfl_sync(kAll, m.oy, v) : 0;
+  fv.tw = clampi(WA - fv.ox, 0, kTile);
+  fv.th = clampi(H - fv.oy, 0, kTile);
+  return fv;
+}
+
+// Bilinear RGB of lattice point (gx, gy) of view `fv`, in the plain
+// versions' operation order (no FMA: a flat window must come out as the
+// same bits, or its NCC is made of different rounding noise). K1 (kV1
+// false): taps clamped into the atlas plane. K3: positions relative to
+// the tile, taps outside it weigh 0 (the tile is a rectangle, so the row
+// and column factors are masked, which zeroes the same products).
+template <bool kV1>
+__device__ __forceinline__ void fan_sample(const FanView& fv, int H, int WA,
+                                           float gx, float gy,
+                                           float val[3]) {
+  float x = fv.fr[0] + gx * fv.fr[2] + gy * fv.fr[4];
+  float y = fv.fr[1] + gx * fv.fr[3] + gy * fv.fr[5];
+  if (kV1) {
+    x = x - fv.ox;
+    y = y - fv.oy;
+  }
+  x = fminf(fmaxf(x, -kFanPosMax), kFanPosMax);
+  y = fminf(fmaxf(y, -kFanPosMax), kFanPosMax);
+  int lx, ly;
+  const float fx = floor_int(x, lx), fy = floor_int(y, ly);
+  float dx1 = x - fx, dy1 = y - fy;
+  float dx0 = 1.f - dx1, dy0 = 1.f - dy1;
+  if (kV1) {
+    const unsigned tw = fv.tw, th = fv.th;
+    dx0 = static_cast<unsigned>(lx) < tw ? dx0 : 0.f;
+    dx1 = static_cast<unsigned>(lx + 1) < tw ? dx1 : 0.f;
+    dy0 = static_cast<unsigned>(ly) < th ? dy0 : 0.f;
+    dy1 = static_cast<unsigned>(ly + 1) < th ? dy1 : 0.f;
+  }
+  const int ax = fv.ox + lx, ay = fv.oy + ly;  // atlas pixel of tap 00
+  const int xa = clampi(ax, 0, WA - 1), xb = clampi(ax + 1, 0, WA - 1);
+  const int r0 = clampi(ay, 0, H - 1), r1 = clampi(ay + 1, 0, H - 1);
+  float c00[3], c10[3], c01[3], c11[3];
+  const uint8_t* p0 = fv.img + (r0 * WA + xa) * 3;
+  row_pair(p0, xb != xa, r0 >= fv.row_lo && r0 <= fv.row_hi, c00, c10);
+  row_pair(p0 + (r1 - r0) * WA * 3, xb != xa,
+           r1 >= fv.row_lo && r1 <= fv.row_hi, c01, c11);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    val[c] = c00[c] * dx0 * dy0 + c10[c] * dx1 * dy0 + c01[c] * dx0 * dy1 +
+             c11[c] * dx1 * dy1;
+}
+
+// Lattice offsets (gx, gy) of sample s of a wsize x wsize window.
+__device__ __forceinline__ void lattice(int s, int wsize, float& gx,
+                                        float& gy) {
+  const int margin = wsize / 2;
+  gx = static_cast<float>(s % wsize - margin);
+  gy = static_cast<float>(s / wsize - margin);
+}
+
+// a / b rounded to nearest, from y = RN(1/b): the product a * y is within
+// an ulp of a / b, the remainder a - b q is exact in one FMA, and one
+// correction step rounds it correctly (Markstein's theorem, barring
+// overflow and underflow; a = 0 gives 0). Three instructions where an
+// IEEE division takes a dozen and a branch; the bits are the division's.
+__device__ __forceinline__ float div_by(float a, float b, float y) {
+  const float q = a * y;
+  return __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
+}
+
+// x / (1 + 3x) of x = 1 - NCC, from a view's variance, the reference's
+// variance and their covariance; a variance <= 0 normalizes by 1.
+__device__ __forceinline__ float robust_incc(float var, float var_r,
+                                             float cov) {
+  const float istd_v = var <= 0.f ? 1.f : 1.f / sqrtf(fmaxf(var, 1e-20f));
+  const float istd_r =
+      var_r <= 0.f ? 1.f : 1.f / sqrtf(fmaxf(var_r, 1e-20f));
+  const float dot = cov * istd_r * istd_v;
+  const float xx = 1.f - dot;
+  return xx / (1.f + 3.f * xx);
+}
+
+template <int kHeld, bool kV1>
+__global__ void __launch_bounds__(32 * kFanWarps)
+    fan_incc_kernel(const uint8_t* __restrict__ atlas, int N, int H, int WA,
+                    const int* __restrict__ vid,
+                    const int* __restrict__ tile_org,
+                    const float* __restrict__ frames,
+                    const uint8_t* __restrict__ ok, float* __restrict__ out,
+                    int B, int T, int fan, int wsize) {
+  const long long w =
+      static_cast<long long>(blockIdx.x) * kFanWarps + (threadIdx.x >> 5);
+  if (w >= static_cast<long long>(B) * fan) return;
+  const int b = static_cast<int>(w / fan), f = static_cast<int>(w % fan);
+  const int lane = threadIdx.x & 31;
+  const int s2 = wsize * wsize;
+  const float s2f = static_cast<float>(s2), rs2 = 1.f / s2f;
+  const FanMeta meta =
+      fan_meta<kV1>(N, vid, tile_org, frames, ok, b, T, fan, f, lane);
+  // Lane v keeps view v's sum of squared deviations (sq) and of
+  // deviations times view 0's (cross); the INCCs of all T views are
+  // finished together at the end, one view a lane.
+  float sq = 0.f, cross = 0.f;
+
+  if constexpr (kHeld > 0) {
+    float gx[kHeld], gy[kHeld];
+    bool in[kHeld];
+    float d0[kHeld][3] = {};  // view 0's deviations
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      in[k] = lane + 32 * k < s2;
+      lattice(in[k] ? lane + 32 * k : 0, wsize, gx[k], gy[k]);
+    }
+    for (int v = 0; v < T; ++v) {
+      const FanView V = fan_view<kV1>(meta, atlas, N, H, WA, v);
+      float x[kHeld][3] = {};
+      float m[3] = {};
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k) {
+        if (in[k] && V.ok) fan_sample<kV1>(V, H, WA, gx[k], gy[k], x[k]);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) m[ch] += x[k][ch];
+      }
+      warp_sum_n(m);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) m[ch] = div_by(m[ch], s2f, rs2);
+      float q[2] = {};
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float d = in[k] ? x[k][ch] - m[ch] : 0.f;
+          if (v == 0) d0[k][ch] = d;
+          q[0] += d * d;
+          q[1] += d * d0[k][ch];
+        }
+      }
+      warp_sum_n(q);
+      sq = lane == v ? q[0] : sq;
+      cross = lane == v ? q[1] : cross;
+    }
+  } else {
+    const FanView R = fan_view<kV1>(meta, atlas, N, H, WA, 0);
+    float mean0[3] = {};
+    for (int v = 0; v < T; ++v) {
+      const FanView V = fan_view<kV1>(meta, atlas, N, H, WA, v);
+      float m[3] = {};
+      for (int s = lane; s < s2; s += 32) {
+        float gx, gy, x[3] = {};
+        lattice(s, wsize, gx, gy);
+        if (V.ok) fan_sample<kV1>(V, H, WA, gx, gy, x);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) m[ch] += x[ch];
+      }
+      warp_sum_n(m);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) m[ch] = div_by(m[ch], s2f, rs2);
+      if (v == 0)
+        for (int ch = 0; ch < 3; ++ch) mean0[ch] = m[ch];
+      float q[2] = {};
+      for (int s = lane; s < s2; s += 32) {
+        float gx, gy, x[3] = {}, r[3] = {};
+        lattice(s, wsize, gx, gy);
+        if (V.ok) fan_sample<kV1>(V, H, WA, gx, gy, x);
+        if (R.ok) fan_sample<kV1>(R, H, WA, gx, gy, r);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float d = x[ch] - m[ch];
+          q[0] += d * d;
+          q[1] += d * (r[ch] - mean0[ch]);
+        }
+      }
+      warp_sum_n(q);
+      sq = lane == v ? q[0] : sq;
+      cross = lane == v ? q[1] : cross;
+    }
+  }
+  const float norm = 3.f * s2;
+  const float var = sq / norm;
+  const float var0 = __shfl_sync(0xffffffffu, var, 0);
+  if (lane < T)
+    out[(static_cast<long long>(b) * T + lane) * fan + f] =
+        robust_incc(var, var0, cross / norm);
+}
+
+// Launch K1 (kV1 false; tile_org unused) or K3 on `stream`: one warp per
+// (patch, probe), kFanWarps warps per block, samples held in registers
+// where the window allows. Returns the CUDA error code (invalid value for
+// T outside 1..32, wsize outside 1..kFanMaxWsize or an atlas plane of 2
+// GB or more).
+template <bool kV1>
+__host__ inline int launch_fan_incc(const void* atlas, int N, int H, int WA,
+                                    const void* vid, const void* tile_org,
+                                    const void* frames, const void* ok,
+                                    void* out, int B, int T, int fan,
+                                    int wsize, void* stream) {
+  if (T < 1 || T > 32 || wsize < 1 || wsize > kFanMaxWsize ||
+      3LL * H * WA >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long warps = static_cast<long long>(B) * fan;
+  const unsigned blocks =
+      static_cast<unsigned>((warps + kFanWarps - 1) / kFanWarps);
+  const int held = (wsize * wsize + 31) / 32;
+  auto go = [&](auto kernel) {
+    kernel<<<blocks, 32 * kFanWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(atlas), N, H, WA,
+        static_cast<const int*>(vid), static_cast<const int*>(tile_org),
+        static_cast<const float*>(frames), static_cast<const uint8_t*>(ok),
+        static_cast<float*>(out), B, T, fan, wsize);
+  };
+  switch (held) {  // registers up to s2 = 128 (wsize 11), then recompute
+    case 1: go(fan_incc_kernel<1, kV1>); break;
+    case 2: go(fan_incc_kernel<2, kV1>); break;
+    case 3: go(fan_incc_kernel<3, kV1>); break;
+    case 4: go(fan_incc_kernel<4, kV1>); break;
+    default: go(fan_incc_kernel<0, kV1>); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename K>
 __host__ inline cudaError_t allow_shared(K kernel, size_t bytes) {

@@ -33,6 +33,18 @@ TILE_STRIDE = 12   # tile origin stride in px (pallas_fan.py:58)
 # must stay <= (TILE_PX - TILE_STRIDE - 1) / 2 - 1 px (pallas_fan.py:
 # 439-447), so probe 0's window always fits its tile.
 SPAN_BUDGET = (TILE_PX - TILE_STRIDE - 1) / 2.0 - 1.0
+# The largest window the fan kernels K1 and K3 take (csrc/common.cuh
+# kFanMaxWsize); the plain versions take any.
+MAX_WSIZE = 63
+
+
+def check_fan_shape(name: str, t: int, wsize: int):
+    """Raise on a view count or window the fan kernels do not take."""
+    if not 1 <= t <= 32:
+        raise ValueError(f"{name}: T={t} views, the kernel takes 1..32")
+    if not 1 <= wsize <= MAX_WSIZE:
+        raise ValueError(f"{name}: wsize={wsize}, the kernel takes "
+                         f"1..{MAX_WSIZE}")
 
 
 def tile_counts(h: int, wa: int) -> tuple[int, int]:
@@ -225,8 +237,7 @@ def incc_fan_v1(atlas_u8, vid, tile_org, frames, ok, wsize: int):
         return incc_fan_v1_plain(atlas_u8, vid, tile_org, frames, ok, wsize)
     b, t, fan, _ = frames.shape
     dev = frames.device
-    if not 1 <= t <= 32:
-        raise ValueError(f"incc_fan_v1: T={t} views, the kernel takes 1..32")
+    check_fan_shape("incc_fan_v1", t, wsize)
     n, h, wa, _ = atlas_u8.shape
     kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
     kernels.require(vid, "vid", torch.int32, (b, t), dev)
@@ -242,10 +253,18 @@ def incc_fan_v1(atlas_u8, vid, tile_org, frames, ok, wsize: int):
         frames.data_ptr(), ok.data_ptr(), out.data_ptr(), b, t, fan, wsize,
         kernels.stream_handle()), "incc_fan_v1")
     incc_fan_v1.launches += 1
+    if incc_fan_v1.capture is not None:
+        incc_fan_v1.capture.append(
+            ((atlas_u8, vid, tile_org, frames, ok, wsize), {}))
     return out
 
 
 incc_fan_v1.launches = 0
+# Opt-in: set to a list to keep the arguments (args, kwargs) of every
+# kernel launch, so that a run's launches can be replayed and timed at
+# their own shapes (chip_smoke.py phases 5, 8 and 9). The tensors are
+# kept, not copied.
+incc_fan_v1.capture = None
 # Opt-in diagnostic: set to a dict to accumulate, as device scalars, the
 # ok probes ("probes") and those with a sample outside the pair's probe-0
 # tile ("clipped") - the v1 rule gives such taps weight 0.

@@ -19,7 +19,7 @@ import torch
 
 from ..image.sample import bilinear_at
 from . import kernels
-from .fan import robust_incc_vs_ref, window_positions
+from .fan import check_fan_shape, robust_incc_vs_ref, window_positions
 
 
 def incc_fan_plain(atlas_u8, vid, frames, ok, wsize: int):
@@ -40,8 +40,7 @@ def incc_fan(atlas_u8, vid, frames, ok, wsize: int):
         return incc_fan_plain(atlas_u8, vid, frames, ok, wsize)
     b, t, fan, _ = frames.shape
     dev = frames.device
-    if not 1 <= t <= 32:
-        raise ValueError(f"incc_fan: T={t} views, the kernel takes 1..32")
+    check_fan_shape("incc_fan", t, wsize)
     n, h, wa, _ = atlas_u8.shape
     kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
     kernels.require(vid, "vid", torch.int32, (b, t), dev)
@@ -56,7 +55,12 @@ def incc_fan(atlas_u8, vid, frames, ok, wsize: int):
         ok.data_ptr(), out.data_ptr(), b, t, fan, wsize,
         kernels.stream_handle()), "incc_fan")
     incc_fan.launches += 1
+    if incc_fan.capture is not None:
+        incc_fan.capture.append(((atlas_u8, vid, frames, ok, wsize), {}))
     return out
 
 
 incc_fan.launches = 0
+# Opt-in: a list that keeps every launch's arguments (see
+# ops/fan.incc_fan_v1.capture).
+incc_fan.capture = None

@@ -68,7 +68,13 @@ def incc_blocks(atlas_u8, starts, relx, rely, ok, t: int, k: int = BLOCK_K):
         rely.data_ptr(), ok.data_ptr(), out.data_ptr(), bt // t, t, s2, k,
         kernels.stream_handle()), "incc_blocks")
     incc_blocks.launches += 1
+    if incc_blocks.capture is not None:
+        incc_blocks.capture.append(((atlas_u8, starts, relx, rely, ok),
+                                    {"t": t, "k": k}))
     return out
 
 
 incc_blocks.launches = 0
+# Opt-in: a list that keeps every launch's arguments (see
+# ops/fan.incc_fan_v1.capture).
+incc_blocks.capture = None

@@ -62,10 +62,16 @@ def windows(atlas_u8, starts, relx, rely, ok, t: int, k: int = BLOCK_K):
         rely.data_ptr(), ok.data_ptr(), out.data_ptr(), bt, s2, k,
         kernels.stream_handle()), "windows")
     windows.launches += 1
+    if windows.capture is not None:
+        windows.capture.append(((atlas_u8, starts, relx, rely, ok),
+                                {"t": t, "k": k}))
     return out
 
 
 windows.launches = 0
+# Opt-in: a list that keeps every launch's arguments (see
+# ops/fan.incc_fan_v1.capture).
+windows.capture = None
 # Opt-in diagnostic: set to a dict to accumulate, as device scalars, the
 # ok pairs ("pairs") and those with a bilinear tap outside the BLOCK_K
 # block ("clipped") - the reference's block semantics drop such taps.

@@ -96,6 +96,117 @@ def test_incc_fan_v1_kernel_matches_plain(setup, fan):
         assert float((got - want).abs()[pair].max()) <= 1e-4
 
 
+def _fan_case(atlas, t, wsize, seed, b=32, fan=2, edge=False):
+    """Random K1 and K3 arguments on `atlas`: ~1-px lattice steps, windows
+    anywhere (taps may clamp at any edge), a tenth of the probes not ok.
+    edge: every pair on the last view with its windows reaching the last
+    rows and columns of the atlas, and its tile passing the atlas edge."""
+    dev = atlas.device
+    n, h, wa, _ = atlas.shape
+    rng = np.random.default_rng(seed)
+    vid = rng.integers(0, n, (b, t))
+    fr = np.empty((b, t, fan, 6))
+    fr[..., 2] = rng.uniform(0.8, 1.2, (b, t, fan))
+    fr[..., 3] = rng.uniform(-0.2, 0.2, (b, t, fan))
+    fr[..., 4] = rng.uniform(-0.2, 0.2, (b, t, fan))
+    fr[..., 5] = rng.uniform(0.8, 1.2, (b, t, fan))
+    if edge:
+        vid[:] = n - 1
+        fr[..., 0] = wa - 1 - rng.uniform(0.0, 2.0, (b, t, fan))
+        fr[..., 1] = h - 1 - rng.uniform(0.0, 2.0, (b, t, fan))
+        org = np.stack([np.full((b, t), (wa - 16) // 12 * 12),
+                        np.full((b, t), (h - 16) // 12 * 12)], -1)
+    else:
+        fr[..., 0] = rng.uniform(0.0, wa - 1.0, (b, t, fan))
+        fr[..., 1] = rng.uniform(0.0, h - 1.0, (b, t, fan))
+        lo = fr[:, :, 0, :2] - 1.2 * (wsize // 2) - 1.0
+        org = np.maximum(np.floor(lo / 12.0), 0.0) * 12
+    ok = rng.random((b, t, fan)) > 0.1
+
+    def d(a, dtype):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    return (d(vid, torch.int32), d(org, torch.int32),
+            d(fr, torch.float32), d(ok, torch.bool))
+
+
+def _check_fans(atlas, vid, org, frames, ok, wsize):
+    """K1 and K3 against their plain versions on every (patch, view,
+    probe), not-ok ones included, at 1e-4."""
+    got = _launched(fan2.incc_fan, atlas, vid, frames, ok, wsize)
+    want = fan2.incc_fan_plain(atlas, vid, frames, ok, wsize)
+    assert float((got - want).abs().max()) <= 1e-4
+    args = (atlas, vid, org, frames, ok, wsize)
+    got = _launched(F1.incc_fan_v1, *args)
+    want = F1.incc_fan_v1_plain(*args)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("wsize", [5, 7, 9, 11, 13, F1.MAX_WSIZE])
+@pytest.mark.parametrize("t", [1, 6, 12, 32])
+def test_fan_kernels_edge_shapes(setup, t, wsize):
+    """K1 and K3 at T = 1..32 and windows from 5 px to the largest
+    (register path up to wsize 11, recomputing path above)."""
+    atlas = setup["pyr"].atlas_u8
+    b = 32 if wsize <= 13 else 4
+    _check_fans(atlas, *_fan_case(atlas, t, wsize, seed=t * 100 + wsize,
+                                  b=b), wsize)
+
+
+@pytest.mark.parametrize("wsize", [7, 13])
+def test_fan_kernels_at_the_atlas_end(setup, wsize):
+    """Windows on the last view reaching the atlas's last rows and columns
+    (the wide tap loads must stop at the allocation), K3 tiles passing the
+    atlas edge, on a random atlas as it is and on a copy starting 5 bytes
+    past an aligned address."""
+    rng = np.random.default_rng(wsize)
+    atlas = torch.tensor(rng.integers(0, 256, (3, 50, 70, 3), np.uint8),
+                         device=setup["dev"])
+    buf = torch.zeros(atlas.numel() + 5, dtype=torch.uint8,
+                      device=atlas.device)
+    shifted = buf[5:].view(atlas.shape)
+    shifted.copy_(atlas)
+    for a in (atlas, shifted):
+        _check_fans(a, *_fan_case(a, 6, wsize, seed=wsize, edge=True),
+                    wsize)
+
+
+def test_fan_kernels_without_ok_probes(setup):
+    atlas = setup["pyr"].atlas_u8
+    vid, org, frames, ok = _fan_case(atlas, 6, 7, seed=5)
+    ok = torch.zeros_like(ok)
+    _check_fans(atlas, vid, org, frames, ok, 7)
+    assert bool((fan2.incc_fan(atlas, vid, frames, ok, 7) == 0.25).all())
+
+
+@pytest.mark.parametrize("near", [False, True])
+def test_fan_kernels_on_flat_windows(setup, near):
+    """Flat windows (variance 0) and near-flat ones (a few pixels one
+    level up on a level of 200, where a one-pass variance would cancel)."""
+    rng = np.random.default_rng(7)
+    img = np.full((3, 40, 60, 3), 200, np.uint8)
+    if near:
+        img[rng.random(img.shape[:3]) < 0.05] += 1
+    atlas = torch.tensor(img, device=setup["dev"])
+    vid, org, frames, ok = _fan_case(atlas, 6, 7, seed=8)
+    frames[..., 0:2] = frames[..., 0:2].clamp(6.0, 30.0)
+    org = torch.zeros_like(org)
+    _check_fans(atlas, vid, org, frames, ok, 7)
+
+
+def test_fan_wrappers_reject_unsupported_shapes(setup):
+    atlas = setup["pyr"].atlas_u8
+    vid, org, frames, ok = _fan_case(atlas, 6, 7, seed=9, b=2)
+    for wsize in (0, F1.MAX_WSIZE + 1):
+        with pytest.raises(ValueError):
+            fan2.incc_fan(atlas, vid, frames, ok, wsize)
+        with pytest.raises(ValueError):
+            F1.incc_fan_v1(atlas, vid, org, frames, ok, wsize)
+    vid, org, frames, ok = _fan_case(atlas, 33, 7, seed=9, b=2)
+    with pytest.raises(ValueError):
+        fan2.incc_fan(atlas, vid, frames, ok, 7)
+
+
 def _blocks(s):
     px, py = _patch_axes(s["cams"], 0, s["views"][:, 0].long(), s["coord"],
                          s["normal"])
