@@ -2,24 +2,28 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --against DIR   # also time DIR's K1 and K3
+    python3 chip_smoke.py --against DIR   # also time DIR's K1-K4
 
 Run from the root of a checkout on a machine with one CUDA GPU (sm_90a,
 e.g. an H100) and the CUDA toolkit. With --against, DIR is another
 checkout of the repository (e.g. the parent commit, unpacked with `git
-archive`); its kernel library is built from its own sources, and its K1
-and K3 are timed beside this tree's on the same inputs, in turns (DIR,
-this, this, DIR), in phases 3, 5, 6 and 8. Phases, each of which raises
-on failure (the script then exits non-zero):
+archive`); its kernel library is built from its own sources, and its K1,
+K2, K3 and K4 are timed beside this tree's on the same inputs, in turns
+(DIR, this, this, DIR), in phases 3-9, and each phase logs the largest
+difference between the two libraries' outputs (K2's also whether they
+are equal bit for bit). Phases, each of which raises on failure (the
+script then exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the hand-written kernels (cmvs_pmvs_tpu_torch/csrc)
-   with nvcc, one process per source, into build/torch_kernels/.
+   with nvcc, one process per source, into build/torch_kernels/; log
+   each kernel's registers and spilled bytes (`-Xptxas -v`).
 3. K1 (refine-fan INCC v2, ops/fan2.incc_fan) against its plain PyTorch
    version on the card: 640x480 plane scene, 6 views, 8192 patches, fan
    4 and fan 1; bar max |diff| <= 1e-4 on valid pairs.
 4. K2 (normalized windows, ops/windows.windows) against its plain
-   version: 8192 patches x 12 views, wsize 7; bar max |diff| <= 1e-4.
+   version: 8192 patches x 12 views, wsize 7; bar max |diff| <= 1e-4;
+   the share of ok pairs logged.
 5. The full protocol through the port's `reconstruct` in the default
    configuration (fan LM with K1, windows with K2): occluded scene, 12
    views at 640x480, level 0, 3 expand rounds. Checks the kernel launch
@@ -27,13 +31,14 @@ on failure (the script then exits non-zero):
    written .patch/.ply/.pset files. Every K1 and K2 launch's arguments
    are kept (the wrappers' `capture` lists) and replayed after the run:
    each kernel's summed device time at the run's own shapes (K1 split
-   by fan) beside the sum of the calls' bounds.
+   by fan) beside the sum of the calls' bounds and the calls' ok share.
 6. K3 (refine-fan INCC v1, ops/fan.incc_fan_v1) against its plain
    version at phase 3's shape, fan 4 and fan 1; bar 1e-4 on valid pairs.
    Also K3 against K1 on the same inputs, with the count of probes that
    left their pair's probe-0 tile (where the two legitimately differ).
 7. K4 (fused block INCC, ops/incc.incc_blocks) against its plain
-   version: 8192 patches x 6 views, wsize 7; bar 1e-4.
+   version: 8192 patches x 6 views, wsize 7; bar 1e-4; the ok share
+   logged.
 8. Phase 5's protocol with refine.USE_FAN_V2 = False (the fan LM on K3):
    K3 launched, K1 not; the same bars; K3's launches replayed as K1's
    are in phase 5.
@@ -56,9 +61,13 @@ the last is a JSON object with each kernel's launches (in the run whose
 path it serves, and per run), error, times, and its bound: the larger
 of its compulsory bytes over the H100's 3.35 TB/s and its float32
 operations over the 67 TFLOP/s non-tensor peak, counted from this run's
-inputs. The last line is
-{"ok": true, "device": {...}}. The script imports no jax and nothing of
-the JAX package.
+inputs. K2 and K4 read a pair's positions and taps only where its window
+is needed (K2: ok pairs; K4: ok pairs of patches whose reference is ok),
+so only those count; every pair's `starts`, `ok` and output count (a
+failed pair still writes its zeros or its 2.0). Phases 4, 7 and the K2
+and K4 replays also log the earlier count (every pair's positions).
+The last line is {"ok": true, "device": {...}}. The script imports no
+jax and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -109,6 +118,33 @@ def phase_device():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     return smi
+
+
+def kernel_registers(report: str) -> list:
+    """(kernel, registers, spilled bytes) of each kernel in nvcc's
+    `-Xptxas -v` output, in its order; a kernel named by its unmangled
+    name and template arguments, e.g. windows_kernel<2>."""
+    import re
+    out, entry, props, spill = [], None, None, 0
+    for line in report.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry and props == entry:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            k = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", entry)
+            name = (k.group(1) + "<" + ", ".join(
+                re.findall(r"L[a-z](\d+)E", k.group(2))) + ">") if k \
+                else entry
+            out.append((name, int(m.group(1)), spill))
+            entry = None
+    return out
 
 
 def timed(fn, samples: int = 7) -> float:
@@ -166,6 +202,38 @@ def raw_fan(lib, atlas, *rest):
     if rc != 0:
         raise RuntimeError(f"against library: cudaError {rc}")
     return out
+
+
+def raw_block(lib, name, atlas, starts, relx, rely, ok, t: int,
+              k: int = 20):
+    """K2 (name "windows") or K4 ("incc_blocks") of the kernel library
+    `lib`, launched without the wrapper (k: ops/texture.BLOCK_K)."""
+    import torch
+    bt, s2 = relx.shape
+    n, h, wa, _ = atlas.shape
+    head = (atlas.data_ptr(), n, h, wa, starts.data_ptr(), relx.data_ptr(),
+            rely.data_ptr(), ok.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "windows":
+        out = torch.empty((bt // t, t, s2, 3), dtype=torch.float32,
+                          device=relx.device)
+        rc = lib.cmvs_windows(*head, out.data_ptr(), bt, s2, k, stream)
+    else:
+        out = torch.empty((bt // t, t), dtype=torch.float32,
+                          device=relx.device)
+        rc = lib.cmvs_incc_blocks(*head, out.data_ptr(), bt // t, t, s2, k,
+                                  stream)
+    if rc != 0:
+        raise RuntimeError(f"against library: cudaError {rc}")
+    return out
+
+
+def raw_launch(other, name: str):
+    """A launcher of kernel `name` of the library `other` that takes the
+    wrapper's arguments."""
+    if name in ("incc_fan", "incc_fan_v1"):
+        return lambda *args, **kwargs: raw_fan(other, *args)
+    return lambda *args, **kwargs: raw_block(other, name, *args, **kwargs)
 
 
 def in_turns(this, other) -> dict:
@@ -388,13 +456,19 @@ def block_inputs(num_views: int, dev):
 
 
 def block_atlas_bytes(atlas, starts, relx, rely, ok) -> int:
+    """Bytes of the distinct atlas pixels that the taps inside their
+    block read, over the pairs with `ok`; block starts clamped into the
+    atlas as the kernels clamp them."""
     import torch
     from cmvs_pmvs_tpu_torch.ops.texture import BLOCK_K
+    num, h, wa, _ = atlas.shape
     fx, fy = torch.floor(relx).long(), torch.floor(rely).long()
     keep = ok[:, None].expand_as(fx)
-    n = starts[:, 0:1].long().expand_as(fx)[keep]
-    sy = starts[:, 1:2].long().expand_as(fx)[keep]
-    sx = starts[:, 2:3].long().expand_as(fx)[keep]
+    n = starts[:, 0:1].long().clamp(0, num - 1).expand_as(fx)[keep]
+    sy = starts[:, 1:2].long().clamp(0, max(h - BLOCK_K, 0)) \
+        .expand_as(fx)[keep]
+    sx = starts[:, 2:3].long().clamp(0, max(wa - BLOCK_K, 0)) \
+        .expand_as(fx)[keep]
     fx, fy = fx[keep], fy[keep]
     taps = [(dx, dy) for dx in (0, 1) for dy in (0, 1)]
     inside = [(fx + dx >= 0) & (fx + dx < BLOCK_K) & (fy + dy >= 0)
@@ -405,46 +479,70 @@ def block_atlas_bytes(atlas, starts, relx, rely, ok) -> int:
         torch.cat([(sx + fx + dx)[m] for (dx, _), m in zip(taps, inside)]))
 
 
-def phase_k2(dev):
-    import torch
-    from cmvs_pmvs_tpu_torch.ops import windows as W
-    _, args = block_inputs(12, dev)
-    got = W.windows(*args, t=12)
-    want = W.windows_plain(*args, t=12)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    ms = timed(lambda: W.windows(*args, t=12))
-    plain_ms = timed(lambda: W.windows_plain(*args, t=12))
-    b = bound("windows", args[2].numel(),
-              nbytes(*args[1:], got) + block_atlas_bytes(*args))
-    log(f"K2: B={BATCH} N=12 s2=49 ok pairs "
-        f"{float(args[4].float().mean()):.4f} max|diff| {err:.3e} kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP)")
-    if not err <= TOL:
-        raise AssertionError(f"K2 differs: {err} > {TOL}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+def block_need(name: str, ok, t: int):
+    """The pairs whose window K2 ("windows") or K4 ("incc_blocks") must
+    read: K2's ok pairs; K4's ok pairs of patches whose view 0 is ok (the
+    other outputs are 2.0 whatever the windows hold)."""
+    if name == "windows":
+        return ok
+    okb = ok.reshape(-1, t)
+    return (okb & okb[:, 0:1]).reshape(-1)
 
 
-def phase_k4(dev):
+def block_bytes(name: str, atlas, starts, relx, rely, ok, t: int,
+                old: bool = False) -> int:
+    """Compulsory bytes of one K2 or K4 call: every pair's `starts`, `ok`
+    and output (a failed pair still writes its zeros or its 2.0), and for
+    the pairs of `block_need` their relx/rely and the distinct atlas
+    pixels their taps read. old: the earlier count, every pair's
+    relx/rely and the taps of every ok pair."""
+    bt, s2 = relx.shape
+    need = ok if old else block_need(name, ok, t)
+    rel = relx.numel() * 2 if old else 2 * s2 * int(need.sum())
+    out = bt * s2 * 3 if name == "windows" else bt
+    return nbytes(starts, ok) + 4 * (rel + out) \
+        + block_atlas_bytes(atlas, starts, relx, rely, need)
+
+
+def phase_block(name: str, dev, other=None) -> dict:
+    """Phase 4 (K2, 12 views) or 7 (K4, 6 views): the kernel against its
+    plain version and, with `other`, against the other library; device
+    ms in turns; the bound, old and corrected."""
     import torch
     from cmvs_pmvs_tpu_torch.ops import incc
-    _, args = block_inputs(6, dev)
-    got = incc.incc_blocks(*args, t=6)
-    want = incc.incc_blocks_plain(*args, t=6)
+    from cmvs_pmvs_tpu_torch.ops import windows as W
+    label, t = ("K2", 12) if name == "windows" else ("K4", 6)
+    kernel, plain = ((W.windows, W.windows_plain) if name == "windows"
+                     else (incc.incc_blocks, incc.incc_blocks_plain))
+    _, args = block_inputs(t, dev)
+    got = kernel(*args, t=t)
+    want = plain(*args, t=t)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    ms = timed(lambda: incc.incc_blocks(*args, t=6))
-    plain_ms = timed(lambda: incc.incc_blocks_plain(*args, t=6))
-    b = bound("incc_blocks", args[2].numel(),
-              nbytes(*args[1:], got) + block_atlas_bytes(*args))
-    log(f"K4: B={BATCH} T=6 s2=49 ok pairs "
-        f"{float(args[4].float().mean()):.4f} max|diff| {err:.3e} kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP)")
+    against = ""
+    if other is not None:
+        theirs = raw_block(other, name, *args, t=t)
+        torch.cuda.synchronize()
+        diff = float((got - theirs).abs().max())
+        against = (f"(against: max|diff| {diff:.3e}, bit-equal "
+                   f"{torch.equal(got, theirs)}) ")
+    turns = in_turns(lambda: kernel(*args, t=t), other and (
+        lambda: raw_block(other, name, *args, t=t)))
+    host_ms = call_ms(lambda: kernel(*args, t=t))
+    plain_ms = timed(lambda: plain(*args, t=t))
+    b = call_bound(name, args, {"t": t})
+    ok = args[4]
+    log(f"{label}: B={BATCH} T={t} s2=49 ok pairs "
+        f"{float(ok.float().mean()):.4f}, needed windows "
+        f"{float(block_need(name, ok, t).float().mean()):.4f} max|diff| "
+        f"{err:.3e} {against}{turns_text(turns)}, with host {host_ms:.4f} "
+        f"ms; plain {plain_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP; the earlier "
+        f"count {b['old_bytes']} B, {b['old_bound_ms']:.4f} ms)")
     if not err <= TOL:
-        raise AssertionError(f"K4 differs: {err} > {TOL}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+        raise AssertionError(f"{label} differs: {err} > {TOL}")
+    return dict(max_abs_err=err, plain_ms=plain_ms, host_ms=host_ms,
+                **turns, **b)
 
 
 def tile_tap_bytes(atlas, tilemap, rx, ry) -> int:
@@ -761,8 +859,9 @@ def replay(calls, launch) -> dict:
     return {"ms": sum(ms for _, ms in by_fan.values()), "by_fan": by_fan}
 
 
-def call_bound(name: str, args: tuple, kwargs: dict) -> float:
-    """`bound` of one captured call (ms), counted from its own inputs."""
+def call_bound(name: str, args: tuple, kwargs: dict) -> dict:
+    """`bound` of one captured call, counted from its own inputs; for K2
+    and K4 also the earlier count ("old_bytes", "old_bound_ms")."""
     atlas = args[0]
     if name in ("incc_fan", "incc_fan_v1"):
         vid, *org, frames, ok, wsize = args[1:]
@@ -770,49 +869,65 @@ def call_bound(name: str, args: tuple, kwargs: dict) -> float:
         return bound(name, pairs * wsize * wsize,
                      nbytes(vid, *org, frames, ok) + 4 * pairs
                      + fan_atlas_bytes(atlas, vid, frames, ok,
-                                       org[0] if org else None,
-                                       wsize))["bound_ms"]
-    relx, ok = args[2], args[4]
-    out = relx.numel() * 3 if name == "windows" else ok.numel()
-    return bound(name, relx.numel(), nbytes(*args[1:]) + 4 * out
-                 + block_atlas_bytes(*args))["bound_ms"]
+                                       org[0] if org else None, wsize))
+    relx, ok, t = args[2], args[4], kwargs["t"]
+    need = int(block_need(name, ok, t).sum())
+    old = bound(name, relx.numel(), block_bytes(name, *args, t=t, old=True))
+    return {**bound(name, need * relx.shape[1],
+                    block_bytes(name, *args, t=t)),
+            "old_bytes": old["bytes"], "old_bound_ms": old["bound_ms"]}
 
 
 def protocol_kernel_time(label: str, name: str, calls: list, other=None):
     """Replay a protocol run's captured launches of kernel `name` and sum
     their device time (fan kernels: split by fan) and their bounds; with
-    `other` (K1, K3), in turns other, this, this, other with the other
-    library's kernel on the same arguments, whose outputs must agree with
-    this tree's within TOL on valid pairs."""
+    `other`, in turns other, this, this, other with the other library's
+    kernel on the same arguments, whose outputs must agree with this
+    tree's within TOL (fan kernels: on valid pairs)."""
     import torch
     wrapper = kernel_wrappers()[name]
+    fan_kernel = name in ("incc_fan", "incc_fan_v1")
     if other is None:
         runs = [replay(calls, wrapper)]
     else:
-        err = 0.0
-        for args, _ in calls:
-            ok = args[-2]
-            pair = ok & ok[:, 0:1, :]
-            if bool(pair.any()):
-                err = max(err, float((wrapper(*args) - raw_fan(other, *args))
-                                     .abs()[pair].max()))
+        theirs = raw_launch(other, name)
+        err, equal = 0.0, 0
+        for args, kwargs in calls:
+            mine, ref = wrapper(*args, **kwargs), theirs(*args, **kwargs)
+            equal += int(torch.equal(mine, ref))
+            diff = (mine - ref).abs()
+            if fan_kernel:
+                ok = args[-2]
+                diff = diff[ok & ok[:, 0:1, :]]
+            if diff.numel():
+                err = max(err, float(diff.max()))
         log(f"protocol[{label}]: {name} against the other library over "
-            f"{len(calls)} calls: max|diff| {err:.3e}")
+            f"{len(calls)} calls: max|diff| {err:.3e}, {equal} calls "
+            f"bit-equal")
         if not err <= TOL:
             raise AssertionError(f"{label}: {name} differs from the other "
                                  f"library: {err} > {TOL}")
-        runs = [replay(calls, lambda *a: raw_fan(other, *a)),
-                replay(calls, wrapper), replay(calls, wrapper),
-                replay(calls, lambda *a: raw_fan(other, *a))]
+        runs = [replay(calls, theirs), replay(calls, wrapper),
+                replay(calls, wrapper), replay(calls, theirs)]
         runs = [runs[1], runs[2], runs[0], runs[3]]
-    bound_ms = sum(call_bound(name, *c) for c in calls)
+    bounds = [call_bound(name, *c) for c in calls]
+    bound_ms = sum(b["bound_ms"] for b in bounds)
+    extra = ""
+    if not fan_kernel:
+        oks = [c[0][4] for c in calls]
+        need = sum(int(block_need(name, ok, c[1]["t"]).sum())
+                   for ok, c in zip(oks, calls))
+        extra = (f" (the earlier count "
+                 f"{sum(b['old_bound_ms'] for b in bounds):.4f} ms; ok "
+                 f"pairs {sum(int(ok.sum()) for ok in oks)}, needed "
+                 f"windows {need} of {sum(ok.numel() for ok in oks)})")
     names = ["kernel", "kernel", "against", "against"]
     log(f"protocol[{label}]: {name} device time over the run's "
-        f"{len(calls)} launches (replayed), bound {bound_ms:.4f} ms: "
-        + "; ".join(f"{n} {r['ms']:.4f} ms (" + ", ".join(
+        f"{len(calls)} launches (replayed), bound {bound_ms:.4f} ms{extra}: "
+        + "; ".join(f"{n} {r['ms']:.4f} ms" + (" (" + ", ".join(
             f"fan {f}: {c} launches {ms:.4f} ms"
-            for f, (c, ms) in r["by_fan"].items() if f is not None) + ")"
-            for n, r in zip(names, runs)))
+            for f, (c, ms) in r["by_fan"].items()) + ")" if fan_kernel
+            else "") for n, r in zip(names, runs)))
     out = {"protocol_ms": runs[0]["ms"], "protocol_bound_ms": bound_ms,
            "protocol_by_fan": {str(f): v for f, v in
                                runs[0]["by_fan"].items() if f is not None}}
@@ -825,7 +940,7 @@ def protocol_kernel_time(label: str, name: str, calls: list, other=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="another checkout whose K1 and K3 are timed "
+                    help="another checkout whose K1-K4 are timed "
                          "beside this tree's")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "cmvs_pmvs_tpu_torch")):
@@ -841,6 +956,9 @@ def main() -> int:
     kernels.lib()
     log(f"build: {time.time() - t0:.2f} s (nvcc {kernels.build_seconds:.2f}"
         f" s) -> {kernels.library_path().relative_to(ROOT)}")
+    log("registers (nvcc -Xptxas -v; kernel registers/spilled bytes): "
+        + ", ".join(f"{k} {r}/{b}" for k, r, b in
+                    kernel_registers(kernels.build_report)))
     other = None
     if opts.against:
         t0 = time.time()
@@ -850,16 +968,17 @@ def main() -> int:
     dev = torch.device("cuda")
     pyr, fan_in = fan_inputs(dev)
     k1 = phase_k1(pyr, fan_in, other)
-    k2 = phase_k2(dev)
+    k2 = phase_block("windows", dev, other)
     scene, root = write_scene()
     runs = {}
     runs["default"], calls = phase_protocol(
         dev, scene, root, "default", {}, need=("incc_fan", "windows"))
     k1[4].update(protocol_kernel_time("default", "incc_fan",
                                       calls["incc_fan"], other))
-    k2.update(protocol_kernel_time("default", "windows", calls["windows"]))
+    k2.update(protocol_kernel_time("default", "windows", calls["windows"],
+                                   other))
     k3 = phase_k3(pyr, fan_in, other)
-    k4 = phase_k4(dev)
+    k4 = phase_block("incc_blocks", dev, other)
     runs["fan_v1"], calls = phase_protocol(
         dev, scene, root, "fan_v1", {"USE_FAN_V2": False},
         need=("incc_fan_v1", "windows"), absent=("incc_fan",))
@@ -869,7 +988,7 @@ def main() -> int:
         dev, scene, root, "central", {"USE_FAN": False},
         need=("incc_blocks", "windows"), absent=("incc_fan", "incc_fan_v1"))
     k4.update(protocol_kernel_time("central", "incc_blocks",
-                                   calls["incc_blocks"]))
+                                   calls["incc_blocks"], other))
     del calls
     shutil.rmtree(root, ignore_errors=True)
     ablation = phase_ablation(dev)
@@ -885,7 +1004,8 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"],
                 "library_ms": res.get("library_ms"),
-                **{k: res[k] for k in ("protocol_ms", "protocol_bound_ms")
+                **{k: res[k] for k in ("protocol_ms", "protocol_bound_ms",
+                                       "against_ms", "protocol_against_ms")
                    if k in res}}
 
     print(json.dumps({"kernels": [

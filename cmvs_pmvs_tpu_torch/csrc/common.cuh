@@ -17,61 +17,6 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// One RGB pixel of the uint8 atlas [N, H, WA, 3], indices clamped.
-__device__ __forceinline__ void atlas_rgb(const uint8_t* atlas, int n,
-                                          int H, int WA, int y, int x,
-                                          float rgb[3]) {
-  y = clampi(y, 0, H - 1);
-  x = clampi(x, 0, WA - 1);
-  const uint8_t* p = atlas + ((static_cast<long long>(n) * H + y) * WA + x) * 3;
-  rgb[0] = static_cast<float>(p[0]);
-  rgb[1] = static_cast<float>(p[1]);
-  rgb[2] = static_cast<float>(p[2]);
-}
-
-// The k x k sampling block of pair p: starts[p] = (n, sy, sx_atlas), each
-// clamped into the atlas like the reference's CLIP-mode block gather.
-struct Block {
-  int n, sy, sx;
-};
-
-__device__ __forceinline__ Block block_of(const int* starts, long long p,
-                                          int N, int H, int WA, int k) {
-  Block b;
-  b.n = clampi(starts[p * 3], 0, N - 1);
-  b.sy = clampi(starts[p * 3 + 1], 0, H - k > 0 ? H - k : 0);
-  b.sx = clampi(starts[p * 3 + 2], 0, WA - k > 0 ? WA - k : 0);
-  return b;
-}
-
-// Bilinear RGB at block-relative position (rx, ry) inside block `b`; a
-// tap outside [0, k) of the block weighs 0 (the reference's block
-// semantics, ops/texture.block_bilinear). Operation order of the plain
-// version, so both round alike under -fmad=false.
-__device__ __forceinline__ void block_sample(const uint8_t* atlas, int H,
-                                             int WA, Block b, int k,
-                                             float rx, float ry,
-                                             float val[3]) {
-  const float fx = floorf(rx), fy = floorf(ry);
-  const int lx = static_cast<int>(fx), ly = static_cast<int>(fy);
-  const float ax = rx - fx, ay = ry - fy;
-  const float wx0 = (lx >= 0 && lx < k) ? 1.f - ax : 0.f;
-  const float wx1 = (lx + 1 >= 0 && lx + 1 < k) ? ax : 0.f;
-  const float wy0 = (ly >= 0 && ly < k) ? 1.f - ay : 0.f;
-  const float wy1 = (ly + 1 >= 0 && ly + 1 < k) ? ay : 0.f;
-  float p00[3], p01[3], p10[3], p11[3];  // p<dx><dy>
-  atlas_rgb(atlas, b.n, H, WA, b.sy + ly, b.sx + lx, p00);
-  atlas_rgb(atlas, b.n, H, WA, b.sy + ly + 1, b.sx + lx, p01);
-  atlas_rgb(atlas, b.n, H, WA, b.sy + ly, b.sx + lx + 1, p10);
-  atlas_rgb(atlas, b.n, H, WA, b.sy + ly + 1, b.sx + lx + 1, p11);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float row0 = wy0 * p00[c] + wy1 * p01[c];
-    const float row1 = wy0 * p10[c] + wy1 * p11[c];
-    val[c] = wx0 * row0 + wx1 * row1;
-  }
-}
-
 // ---- The v1 tile rule (K3, K5-K7) ----------------------------------------
 // A pair samples one kTile x kTile-px tile of the atlas: a tap outside the
 // tile weighs 0, and a tile pixel past the atlas edge reads 0 (the
@@ -156,26 +101,6 @@ __device__ __forceinline__ void tile_bilinear(Tile t, float rx, float ry,
     const float row1 = wy0 * p10[c] + wy1 * p11[c];
     val[c] = wx0 * row0 + wx1 * row1;
   }
-}
-
-// Deviations from the per-channel mean of one warp's window win[s2 * 3]
-// (in place); returns the variance over all 3 * s2 values.
-__device__ __forceinline__ float center_window(float* win, int s2, int lane,
-                                               const float sum[3]) {
-  float mean[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) mean[c] = warp_sum(sum[c]) / s2;
-  __syncwarp();
-  float sq = 0.f;
-  for (int s = lane; s < s2; s += 32) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float d = win[s * 3 + c] - mean[c];
-      win[s * 3 + c] = d;
-      sq += d * d;
-    }
-  }
-  return warp_sum(sq) / (3.f * s2);
 }
 
 // ---- The refine-fan INCC body (K1: csrc/fan2.cu, K3: csrc/fan.cu) --------
@@ -527,6 +452,300 @@ __host__ inline int launch_fan_incc(const void* atlas, int N, int H, int WA,
     default: go(fan_incc_kernel<0, kV1>); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- The block-window body (K2: csrc/windows.cu, K4: csrc/incc.cu) -------
+// A (patch, view) pair samples its s2 block-relative positions (relx,
+// rely) bilinearly inside the k x k block at starts = (n, sy, sx_atlas),
+// the start clamped into the atlas like the reference's CLIP-mode block
+// gather and a tap outside [0, k) of the block weighing 0, and its window
+// is normalized to zero per-channel mean and unit global variance. One
+// warp per window, with no shared memory and no block barrier. Lane l
+// owns samples l, l + 32, ...; with kHeld > 0 samples per lane (windows
+// of up to 32 * kHeld samples) they stay in registers, with kHeld = 0
+// (larger windows) each pass recomputes its samples from the atlas. A
+// held window whose taps all lie inside its block, on rows that may be
+// read as words (every window the reference's geometry makes, barring
+// the atlas's first and last rows), takes the inner path: no masks,
+// clamps or row checks, so fewer instructions a sample. The
+// arithmetic is the first kernels' and the plain version's operation
+// for operation (ops/texture.block_bilinear, normalize_tex), so a window
+// comes out as the same bits on either path.
+
+constexpr int kBlockWarps = 8;      // warps per block
+constexpr int kBlockMaxWsize = 63;  // K2 and K4 take s2 <= kBlockMaxWsize^2
+
+// Samples a lane holds in registers for an s2-sample window (0: recompute).
+__host__ inline int held_samples(int s2) {
+  const int held = (s2 + 31) / 32;
+  return held <= 4 ? held : 0;
+}
+
+// The constants of an s2-sample window's two divisions (the per-channel
+// mean by s2, the variance by 3 * s2) and their reciprocals for div_by,
+// computed once by the launcher (the host's IEEE division gives the
+// device's bits) and passed to the kernel.
+struct WinConst {
+  float s2f, rs2, n3, rn3;
+};
+
+__host__ inline WinConst win_const(int s2) {
+  const float s2f = static_cast<float>(s2), n3 = 3.f * s2f;
+  return {s2f, 1.f / s2f, n3, 1.f / n3};
+}
+
+// A pair's block: its atlas plane, its origin clamped into the atlas, and
+// the rows row_lo .. row_lo + row_n whose taps may be read as aligned
+// words (as in fan_view). inner: the block lies inside the atlas (k >= 2)
+// and every row of it may be read as words, so a tap inside the block
+// needs no clamp and no row check.
+struct BlockView {
+  const uint8_t* img;
+  int sy, sx, row_lo;
+  unsigned row_n;
+  bool inner;
+};
+
+__device__ __forceinline__ BlockView block_view(const uint8_t* atlas, int N,
+                                                int H, int WA, int k, int n,
+                                                int sy, int sx) {
+  BlockView bv;
+  n = clampi(n, 0, N - 1);
+  bv.img = atlas + static_cast<long long>(n) * H * WA * 3;
+  bv.sy = clampi(sy, 0, H - k > 0 ? H - k : 0);
+  bv.sx = clampi(sx, 0, WA - k > 0 ? WA - k : 0);
+  bv.row_lo = n == 0 ? 1 : 0;
+  const int row_hi = WA < 5 ? -1 : (n == N - 1 ? H - 2 : H - 1);
+  bv.row_n = row_hi >= bv.row_lo ? static_cast<unsigned>(row_hi - bv.row_lo)
+                                 : 0u;
+  if (row_hi < bv.row_lo) bv.row_lo = H;  // no row qualifies
+  bv.inner = k >= 2 && H >= k && WA >= k && bv.sy >= bv.row_lo &&
+             bv.sy + k - 1 <= row_hi;
+  return bv;
+}
+
+// Bilinear RGB at block-relative (rx, ry): interpolated in y, then in x,
+// products unfused (-fmad=false), as in the plain version. The block rule
+// masks the row and column weights; the masked tap's pixel is still read,
+// clamped into the atlas, and weighs exactly 0. Positions are clamped to
+// +-kFanPosMax, where floor_int is exact; taps that far out weigh 0 either
+// way. Each tap row is read with row_pair (aligned 8-byte words).
+__device__ __forceinline__ void block_tap(const BlockView& bv, int H, int WA,
+                                          int k, float rx, float ry,
+                                          float val[3]) {
+  rx = fminf(fmaxf(rx, -kFanPosMax), kFanPosMax);
+  ry = fminf(fmaxf(ry, -kFanPosMax), kFanPosMax);
+  int lx, ly;
+  const float fx = floor_int(rx, lx), fy = floor_int(ry, ly);
+  const float ax = rx - fx, ay = ry - fy;
+  const unsigned ku = static_cast<unsigned>(k);
+  const float wx0 = static_cast<unsigned>(lx) < ku ? 1.f - ax : 0.f;
+  const float wx1 = static_cast<unsigned>(lx + 1) < ku ? ax : 0.f;
+  const float wy0 = static_cast<unsigned>(ly) < ku ? 1.f - ay : 0.f;
+  const float wy1 = static_cast<unsigned>(ly + 1) < ku ? ay : 0.f;
+  const int x0 = bv.sx + lx, y0 = bv.sy + ly;  // atlas pixel of tap 00
+  const int xa = clampi(x0, 0, WA - 1), xb = clampi(x0 + 1, 0, WA - 1);
+  const int r0 = clampi(y0, 0, H - 1), r1 = clampi(y0 + 1, 0, H - 1);
+  float p00[3], p10[3], p01[3], p11[3];  // p<dx><dy>
+  const uint8_t* q = bv.img + (r0 * WA + xa) * 3;
+  row_pair(q, xb != xa, static_cast<unsigned>(r0 - bv.row_lo) <= bv.row_n,
+           p00, p10);
+  row_pair(q + (r1 - r0) * WA * 3, xb != xa,
+           static_cast<unsigned>(r1 - bv.row_lo) <= bv.row_n, p01, p11);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float row0 = wy0 * p00[c] + wy1 * p01[c];
+    const float row1 = wy0 * p10[c] + wy1 * p11[c];
+    val[c] = wx0 * row0 + wx1 * row1;
+  }
+}
+
+// Whether the four taps at (rx, ry) lie inside the block: floor in
+// [0, k - 2] on both axes (2 <= k < 2^22). floor_int's integer is wrong
+// only for |x| >= 2^22 (or NaN), and then never in that range, so no
+// clamp is needed.
+__device__ __forceinline__ bool taps_inside(float rx, float ry, int k) {
+  int lx, ly;
+  floor_int(rx, lx);
+  floor_int(ry, ly);
+  const unsigned last = static_cast<unsigned>(k - 2);
+  return static_cast<unsigned>(lx) <= last &&
+         static_cast<unsigned>(ly) <= last;
+}
+
+// block_tap for taps inside an inner block: the masks, clamps and row
+// checks change nothing there and are left out; the same operations
+// otherwise, so the same bits.
+__device__ __forceinline__ void inner_tap(const BlockView& bv, int WA,
+                                          float rx, float ry, float val[3]) {
+  int lx, ly;
+  const float fx = floor_int(rx, lx), fy = floor_int(ry, ly);
+  const float wx1 = rx - fx, wy1 = ry - fy;
+  const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
+  float p00[3], p10[3], p01[3], p11[3];  // p<dx><dy>
+  const uint8_t* q = bv.img + ((bv.sy + ly) * WA + bv.sx + lx) * 3;
+  row_pair(q, true, true, p00, p10);
+  row_pair(q + WA * 3, true, true, p01, p11);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float row0 = wy0 * p00[c] + wy1 * p01[c];
+    const float row1 = wy0 * p10[c] + wy1 * p11[c];
+    val[c] = wx0 * row0 + wx1 * row1;
+  }
+}
+
+// A window's held positions: rx[j], ry[j] of sample lane + 32 j (0 past
+// s2), all loaded before any of its taps.
+template <int kHeld>
+__device__ __forceinline__ void held_positions(const float* __restrict__ rxp,
+                                               const float* __restrict__ ryp,
+                                               int s2, int lane,
+                                               float (&rx)[kHeld],
+                                               float (&ry)[kHeld]) {
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    const int s = lane + 32 * j;
+    rx[j] = s < s2 ? __ldg(rxp + s) : 0.f;
+    ry[j] = s < s2 ? __ldg(ryp + s) : 0.f;
+  }
+}
+
+// The normalized window of one pair at the held positions, its samples
+// held in registers: x[j] is sample lane + 32 j, 0 past s2. Lane sums by
+// sample, one butterfly, the means' and the variance's divisions, and one
+// division by sd a value, as the first kernels did (div_by gives the
+// IEEE division's bits). kInner: every tap lies inside an inner block.
+template <int kHeld, bool kInner>
+__device__ __forceinline__ void held_window_at(
+    const BlockView& bv, int H, int WA, int k, const float (&rx)[kHeld],
+    const float (&ry)[kHeld], int s2, const WinConst& wc, int lane,
+    float (&x)[kHeld][3]) {
+  float m[3] = {};
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[j][c] = 0.f;
+    if (lane + 32 * j < s2) {
+      if (kInner)
+        inner_tap(bv, WA, rx[j], ry[j], x[j]);
+      else
+        block_tap(bv, H, WA, k, rx[j], ry[j], x[j]);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m[c] += x[j][c];
+  }
+  warp_sum_n(m);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) m[c] = div_by(m[c], wc.s2f, wc.rs2);
+  float sq[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float d = lane + 32 * j < s2 ? x[j][c] - m[c] : 0.f;
+      x[j][c] = d;
+      sq[0] += d * d;
+    }
+  }
+  warp_sum_n(sq);
+  float sd = sqrtf(div_by(sq[0], wc.n3, wc.rn3));
+  if (sd == 0.f) sd = 1.f;
+  const float y = 1.f / sd;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[j][c] = div_by(x[j][c], sd, y);
+  }
+}
+
+// held_window_at, on the inner path where every tap of the window lies
+// inside an inner block (a vote over the warp; the reference's block
+// geometry puts every window there), else on the general one.
+template <int kHeld>
+__device__ __forceinline__ void held_window(const BlockView& bv, int H,
+                                            int WA, int k,
+                                            const float (&rx)[kHeld],
+                                            const float (&ry)[kHeld],
+                                            int s2, const WinConst& wc,
+                                            int lane, float (&x)[kHeld][3]) {
+  bool inner = bv.inner;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j)
+    if (lane + 32 * j < s2) inner = inner && taps_inside(rx[j], ry[j], k);
+  if (__all_sync(0xffffffffu, inner))
+    held_window_at<kHeld, true>(bv, H, WA, k, rx, ry, s2, wc, lane, x);
+  else
+    held_window_at<kHeld, false>(bv, H, WA, k, rx, ry, s2, wc, lane, x);
+}
+
+// A window's moments for the recomputing path (kHeld = 0): per-channel
+// means, sd (1 where the variance is 0) and RN(1 / sd).
+struct BlockStats {
+  float mean[3], sd, y;
+};
+
+__device__ __forceinline__ BlockStats block_stats(
+    const BlockView& bv, int H, int WA, int k, const float* __restrict__ rxp,
+    const float* __restrict__ ryp, int s2, const WinConst& wc, int lane) {
+  BlockStats st;
+  float m[3] = {};
+  for (int s = lane; s < s2; s += 32) {
+    float v[3];
+    block_tap(bv, H, WA, k, __ldg(rxp + s), __ldg(ryp + s), v);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m[c] += v[c];
+  }
+  warp_sum_n(m);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) st.mean[c] = div_by(m[c], wc.s2f, wc.rs2);
+  float sq[1] = {0.f};
+  for (int s = lane; s < s2; s += 32) {
+    float v[3];
+    block_tap(bv, H, WA, k, __ldg(rxp + s), __ldg(ryp + s), v);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float d = v[c] - st.mean[c];
+      sq[0] += d * d;
+    }
+  }
+  warp_sum_n(sq);
+  st.sd = sqrtf(div_by(sq[0], wc.n3, wc.rn3));
+  if (st.sd == 0.f) st.sd = 1.f;
+  st.y = 1.f / st.sd;
+  return st;
+}
+
+// Normalized RGB of the sample at (rx, ry) of a window with moments st.
+__device__ __forceinline__ void block_value(const BlockView& bv, int H,
+                                            int WA, int k,
+                                            const BlockStats& st, float rx,
+                                            float ry, float val[3]) {
+  block_tap(bv, H, WA, k, rx, ry, val);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    val[c] = div_by(val[c] - st.mean[c], st.sd, st.y);
+}
+
+// One warp writes n zeros from dst (4-byte aligned): 16-byte stores from
+// the first 16-byte boundary on, single floats before and after it.
+__device__ __forceinline__ void zero_fill(float* dst, int n, int lane) {
+  const int skew = static_cast<int>(
+      ((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 4);
+  const int head = skew < n ? skew : n;
+  if (lane < head) dst[lane] = 0.f;
+  float4* body = reinterpret_cast<float4*>(dst + head);
+  const int n4 = (n - head) / 4;
+  for (int i = lane; i < n4; i += 32)
+    body[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int tail = head + 4 * n4;
+  if (tail + lane < n) dst[tail + lane] = 0.f;
+}
+
+// Arguments K2 and K4 do not take: an empty or too large window, a block
+// of k < 1, an atlas plane of 2 GB or more.
+__host__ inline bool block_args_bad(int H, int WA, int s2, int k) {
+  return s2 < 1 || s2 > kBlockMaxWsize * kBlockMaxWsize || k < 1 ||
+         3LL * H * WA >= (1LL << 31);
 }
 
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.

@@ -4,98 +4,173 @@
 // pallas_incc.py, launched by `incc_pallas` and `incc_pallas_regions`)
 // and the XLA block gather that fed it: for every (patch b, view v) pair
 // it samples the s2 block-relative positions (relx, rely) bilinearly
-// inside the k x k block of starts[b, v] (K2's block rule, shared through
-// common.cuh), normalizes the window to zero per-channel mean and unit
-// global variance, and returns the robust INCC x / (1 + 3x) of
-// x = 1 - <window, view-0 window> / (3 s2). Output conventions of the
-// TPU kernel: 2.0 where the pair's or the reference's grab failed; the
-// reference slot holds 0.0 when its grab succeeded, else 2.0.
+// inside the k x k block of starts[b, v] (K2's block rule), normalizes
+// the window to zero per-channel mean and unit global variance, and
+// returns the robust INCC x / (1 + 3x) of x = 1 - <window, view-0
+// window> / (3 s2). Output conventions of the TPU kernel: 2.0 where the
+// pair's or the reference's grab failed; the reference slot holds 0.0
+// when its grab succeeded, else 2.0.
 //
-// Layout: one block per patch, one warp per view (T <= 32). The windows
-// live in shared memory; only the [B, T] INCCs are written.
+// Layout (the window body is in common.cuh, shared with K2): one warp per
+// patch, eight warps per block, walking the patch's T <= 32 views. Lane
+// l holds samples l, l + 32, ... of each window in registers (up to four
+// a lane, wsize <= 11; larger windows, up to 63, recompute their samples
+// in each pass, view 0's included), so view 0's normalized window stays
+// in registers for the whole walk and each view's cross sum with it is
+// lane-local. The views' block starts and ok flags are loaded once, one
+// view a lane, and handed out by shuffles; lane v keeps view v's cross
+// sum and the T INCCs are finished together, one a lane. No shared
+// memory, no barrier; only the [B, T] INCCs are written.
 //
-// What bounds it on an H100: the relx/rely reads (8 * s2 bytes per pair)
-// and the scattered tap reads; arithmetic is small. No window reaches
-// device memory (the unfused path writes and re-reads 12 * s2 bytes per
-// pair).
+// What bounds it on an H100: bytes - the relx/rely reads (8 * s2 bytes
+// an ok pair) and the taps; the output is 4 bytes a pair and the
+// arithmetic ~52 float32 operations a sample. What held the first version
+// (one block per patch, one warp per view, every window staged
+// in shared memory - T * s2 * 12 bytes, over the 227 KB an SM has at
+// T = 32 and wsize >= 25 - and read again after a block barrier, twelve
+// one-byte tap loads a sample, an IEEE division a value, every pair's
+// positions read) far from that was instruction issue and the barrier.
+// Now failed views, and every view of a patch whose reference failed,
+// read nothing past their ok flags; an ok window issues its relx/rely
+// loads first, reads tap rows as aligned 8-byte words (row_pair), takes
+// the inner path where every tap lies inside its block, and divides by
+// sd with div_by (the division's bits in three instructions). Registers
+// (nvcc -Xptxas -v, CUDA 12.8, sm_90a): 44 / 46 / 48 / 64 for 1-4
+// samples a lane, no spills; 64 and 16 bytes spilled on the recomputing
+// path (wsize >= 13).
 //
-// Numerics: float32, two-pass moments, -fmad=false, sampling in the
-// plain version's operation order (ops/incc.incc_blocks_plain).
+// Numerics: float32, -fmad=false. Each window's values are the first
+// version's bit for bit (K2's arithmetic), and so is each product
+// (v / sd_v) * (r / sd_0); only the cross sum's order differs (by sample,
+// then channel, where the first version summed by element), so the INCCs
+// differ from that kernel's and the plain version's (ops/incc.
+// incc_blocks_plain) by summation order alone.
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void incc_blocks_kernel(const uint8_t* __restrict__ atlas, int N,
-                                   int H, int WA,
-                                   const int* __restrict__ starts,
-                                   const float* __restrict__ relx,
-                                   const float* __restrict__ rely,
-                                   const uint8_t* __restrict__ ok,
-                                   float* __restrict__ out, int T, int s2,
-                                   int k) {
-  extern __shared__ float sh[];
-  const int v = threadIdx.x >> 5;
+template <int kHeld>
+__global__ void __launch_bounds__(32 * cmvs::kBlockWarps)
+    incc_blocks_kernel(const uint8_t* __restrict__ atlas, int N, int H,
+                       int WA, const int* __restrict__ starts,
+                       const float* __restrict__ relx,
+                       const float* __restrict__ rely,
+                       const uint8_t* __restrict__ ok,
+                       float* __restrict__ out, int B, int T, int s2, int k,
+                       const cmvs::WinConst wc) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const long long b =
+      static_cast<long long>(blockIdx.x) * cmvs::kBlockWarps +
+      (threadIdx.x >> 5);
+  if (b >= B) return;
   const int lane = threadIdx.x & 31;
-  const long long base = static_cast<long long>(blockIdx.x) * T;
-  const long long p = base + v;
-  const bool okp = ok[p] != 0;
-  float* win = sh + v * s2 * 3;
-  const float* ref = sh;                                  // warp 0's window
-
-  float sum[3] = {0.f, 0.f, 0.f};
-  if (okp) {
-    const cmvs::Block blk = cmvs::block_of(starts, p, N, H, WA, k);
-    for (int s = lane; s < s2; s += 32) {
-      float val[3];
-      cmvs::block_sample(atlas, H, WA, blk, k, relx[p * s2 + s],
-                         rely[p * s2 + s], val);
+  const long long base = b * T;
+  // lane j < T: view j's block start and ok flag
+  int n = 0, sy = 0, sx = 0;
+  bool ok_j = false;
+  if (lane < T) {
+    const int* st = starts + (base + lane) * 3;
+    n = st[0];
+    sy = st[1];
+    sx = st[2];
+    ok_j = ok[base + lane] != 0;
+  }
+  const unsigned oks = __ballot_sync(kAll, ok_j);
+  const bool ref_ok = (oks & 1u) != 0;
+  auto view = [&](int v) {
+    return cmvs::block_view(atlas, N, H, WA, k, __shfl_sync(kAll, n, v),
+                            __shfl_sync(kAll, sy, v),
+                            __shfl_sync(kAll, sx, v));
+  };
+  const float* rx0 = relx + base * s2;
+  const float* ry0 = rely + base * s2;
+  float cross = 0.f;  // lane v: view v's cross sum with view 0
+  if (ref_ok) {
+    if constexpr (kHeld > 0) {
+      float rx[kHeld], ry[kHeld], r[kHeld][3];  // r: view 0's window
+      cmvs::held_positions<kHeld>(rx0, ry0, s2, lane, rx, ry);
+      cmvs::held_window<kHeld>(view(0), H, WA, k, rx, ry, s2, wc, lane, r);
+      for (int v = 1; v < T; ++v) {
+        if (!((oks >> v) & 1u)) continue;
+        float x[kHeld][3];
+        cmvs::held_positions<kHeld>(rx0 + v * s2, ry0 + v * s2, s2, lane, rx,
+                                    ry);
+        cmvs::held_window<kHeld>(view(v), H, WA, k, rx, ry, s2, wc, lane, x);
+        float q[1] = {0.f};
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        win[s * 3 + c] = val[c];
-        sum[c] += val[c];
+        for (int j = 0; j < kHeld; ++j) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) q[0] += x[j][c] * r[j][c];
+        }
+        cmvs::warp_sum_n(q);
+        cross = lane == v ? q[0] : cross;
+      }
+    } else {
+      const cmvs::BlockView R = view(0);
+      const cmvs::BlockStats r0 =
+          cmvs::block_stats(R, H, WA, k, rx0, ry0, s2, wc, lane);
+      for (int v = 1; v < T; ++v) {
+        if (!((oks >> v) & 1u)) continue;
+        const cmvs::BlockView V = view(v);
+        const float* rxv = rx0 + v * s2;
+        const float* ryv = ry0 + v * s2;
+        const cmvs::BlockStats st =
+            cmvs::block_stats(V, H, WA, k, rxv, ryv, s2, wc, lane);
+        float q[1] = {0.f};
+        for (int s = lane; s < s2; s += 32) {
+          float x[3], e[3];
+          cmvs::block_value(V, H, WA, k, st, __ldg(rxv + s), __ldg(ryv + s),
+                            x);
+          cmvs::block_value(R, H, WA, k, r0, __ldg(rx0 + s), __ldg(ry0 + s),
+                            e);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) q[0] += x[c] * e[c];
+        }
+        cmvs::warp_sum_n(q);
+        cross = lane == v ? q[0] : cross;
       }
     }
-  } else {
-    for (int i = lane; i < s2 * 3; i += 32) win[i] = 0.f;
   }
-  float sd = sqrtf(cmvs::center_window(win, s2, lane, sum));
-  if (sd == 0.f) sd = 1.f;
-  __syncwarp();
-  for (int i = lane; i < s2 * 3; i += 32) win[i] = win[i] / sd;
-  __syncthreads();
-
-  float cross = 0.f;
-  for (int i = lane; i < s2 * 3; i += 32) cross += win[i] * ref[i];
-  const float dot = cmvs::warp_sum(cross) / (3.f * s2);
-  if (lane == 0) {
-    const bool ref_ok = ok[base] != 0;
-    float val;
-    if (v == 0) {
+  if (lane < T) {
+    float val = 2.f;
+    if (lane == 0) {
       val = ref_ok ? 0.f : 2.f;
-    } else if (ref_ok && okp) {
-      const float xx = 1.f - dot;
+    } else if (ref_ok && ok_j) {
+      const float xx = 1.f - cross / wc.n3;
       val = xx / (1.f + 3.f * xx);
-    } else {
-      val = 2.f;
     }
-    out[p] = val;
+    out[base + lane] = val;
   }
 }
 
 }  // namespace
 
+// Returns the CUDA error code (invalid value for T outside 1..32, s2
+// outside 1..63^2, k < 1 or an atlas plane of 2 GB or more).
 extern "C" int cmvs_incc_blocks(const void* atlas, int N, int H, int WA,
                                 const void* starts, const void* relx,
                                 const void* rely, const void* ok, void* out,
                                 int B, int T, int s2, int k, void* stream) {
-  const size_t shmem = static_cast<size_t>(T) * s2 * 3 * sizeof(float);
-  const cudaError_t attr = cmvs::allow_shared(incc_blocks_kernel, shmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  incc_blocks_kernel<<<B, 32 * T, shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(atlas), N, H, WA,
-      static_cast<const int*>(starts), static_cast<const float*>(relx),
-      static_cast<const float*>(rely), static_cast<const uint8_t*>(ok),
-      static_cast<float*>(out), T, s2, k);
+  if (T < 1 || T > 32 || cmvs::block_args_bad(H, WA, s2, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(
+      (static_cast<long long>(B) + cmvs::kBlockWarps - 1) /
+      cmvs::kBlockWarps);
+  auto go = [&](auto kernel) {
+    kernel<<<blocks, 32 * cmvs::kBlockWarps, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(atlas), N, H, WA,
+        static_cast<const int*>(starts), static_cast<const float*>(relx),
+        static_cast<const float*>(rely), static_cast<const uint8_t*>(ok),
+        static_cast<float*>(out), B, T, s2, k, cmvs::win_const(s2));
+  };
+  switch (cmvs::held_samples(s2)) {
+    case 1: go(incc_blocks_kernel<1>); break;
+    case 2: go(incc_blocks_kernel<2>); break;
+    case 3: go(incc_blocks_kernel<3>); break;
+    case 4: go(incc_blocks_kernel<4>); break;
+    default: go(incc_blocks_kernel<0>); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,7 @@ import torch
 
 from . import kernels
 from .texture import BLOCK_K, ncc_dot, robustincc
-from .windows import windows_plain
+from .windows import check_block_shape, windows_plain
 
 
 def incc_blocks_plain(atlas_u8, starts, relx, rely, ok, t: int,
@@ -48,11 +48,7 @@ def incc_blocks(atlas_u8, starts, relx, rely, ok, t: int, k: int = BLOCK_K):
         return incc_blocks_plain(atlas_u8, starts, relx, rely, ok, t, k)
     bt, s2 = relx.shape
     dev = relx.device
-    if not 1 <= t <= 32:
-        raise ValueError(f"incc_blocks: T={t} views, the kernel takes 1..32")
-    if bt % t:
-        raise ValueError(f"incc_blocks: {bt} pairs is not a multiple of "
-                         f"T={t}")
+    check_block_shape("incc_blocks", bt, t, s2, k, max_t=32)
     n, h, wa, _ = atlas_u8.shape
     kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
     kernels.require(starts, "starts", torch.int32, (bt, 3), dev)

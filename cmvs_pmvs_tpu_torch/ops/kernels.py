@@ -24,11 +24,13 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("fan2.cu", "fan.cu", "incc.cu", "windows.cu", "ablate.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
-              "-fPIC")
+# -Xptxas -v: ptxas reports each kernel's registers and spills
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+              "-Xcompiler", "-fPIC")
 
 _lib = None
 build_seconds = 0.0   # wall time of the last nvcc build (0 if cached)
+build_report = ""     # nvcc's output of the library's build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,11 +70,14 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if the hashed library is missing; returns its
-    path and records the build time in `build_seconds`."""
-    global build_seconds
+    path and records the build time in `build_seconds` and nvcc's output
+    in `build_report` (kept beside the library, read back when cached)."""
+    global build_seconds, build_report
     path = library_path()
+    report = path.with_suffix(".txt")
     if path.exists():
         build_seconds = 0.0
+        build_report = report.read_text() if report.exists() else ""
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{path.stem}.{os.getpid()}"
@@ -98,6 +103,8 @@ def build() -> Path:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"({rc}) {' '.join(cmd)}\n{out}" for cmd, out, rc in failed))
+    build_report = "".join(out for _, out, _ in done)
+    report.write_text(build_report)
     os.replace(tmp, path)
     build_seconds = time.time() - t0
     return path

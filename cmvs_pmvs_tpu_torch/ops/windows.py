@@ -17,6 +17,29 @@ import torch
 from . import kernels
 from .texture import BLOCK_K, block_bilinear, normalize_tex
 
+# The largest window K2 and K4 take (csrc/common.cuh kBlockMaxWsize):
+# s2 <= MAX_WSIZE ** 2 samples a window; the plain versions take any.
+MAX_WSIZE = 63
+
+
+def check_block_shape(name: str, pairs: int, t: int, s2: int, k: int,
+                      max_t: int | None = None):
+    """Raise on a batch the block kernels K2 and K4 do not take: pairs not
+    a whole number of T-view patches (T >= 1, and <= max_t where given),
+    s2 outside 1..MAX_WSIZE ** 2, a block of k < 1 px."""
+    if t < 1 or (max_t is not None and t > max_t):
+        raise ValueError(f"{name}: T={t} views, the kernel takes "
+                         f"1..{max_t or 'any'}")
+    if pairs % t:
+        raise ValueError(f"{name}: {pairs} pairs is not a multiple of "
+                         f"T={t}")
+    if not 1 <= s2 <= MAX_WSIZE ** 2:
+        raise ValueError(f"{name}: {s2} samples a window, the kernel takes "
+                         f"1..{MAX_WSIZE ** 2} (wsize <= {MAX_WSIZE})")
+    if k < 1:
+        raise ValueError(f"{name}: block of k={k} px, the kernel takes "
+                         f"k >= 1")
+
 
 def windows_plain(atlas_u8, starts, relx, rely, ok, t: int,
                   k: int = BLOCK_K):
@@ -45,8 +68,7 @@ def windows(atlas_u8, starts, relx, rely, ok, t: int, k: int = BLOCK_K):
         return windows_plain(atlas_u8, starts, relx, rely, ok, t, k)
     bt, s2 = relx.shape
     dev = relx.device
-    if bt % t:
-        raise ValueError(f"windows: {bt} pairs is not a multiple of T={t}")
+    check_block_shape("windows", bt, t, s2, k)
     n, h, wa, _ = atlas_u8.shape
     kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
     kernels.require(starts, "starts", torch.int32, (bt, 3), dev)

@@ -266,6 +266,136 @@ def test_windows_kernel_matches_plain(setup):
     assert float((got - want).abs().max()) <= 1e-4
 
 
+def _block_case(atlas, t, s2, seed, b=32, edge=False, inside=False):
+    """Random K2 and K4 arguments on `atlas`: block starts anywhere, some
+    past the atlas's edges (clamped), block-relative positions reaching
+    1.5 px past the block (taps there weigh 0), a tenth of the pairs not
+    ok and every fourth patch's reference failed. edge: every pair on the
+    last view, its block at the atlas's last rows and columns and its
+    taps reaching them. inside: every tap inside its block (the kernels'
+    inner path where the block's rows allow it)."""
+    n, h, wa, _ = atlas.shape
+    k = W.BLOCK_K
+    rng = np.random.default_rng(seed)
+    bt = b * t
+    if edge:
+        starts = np.stack([np.full(bt, n - 1), h - k + rng.integers(0, 4, bt),
+                           wa - k + rng.integers(0, 4, bt)], -1)
+        rel = rng.uniform(k - 4.0, k - 0.5, (2, bt, s2))
+    else:
+        starts = np.stack([rng.integers(0, n, bt),
+                           rng.integers(-3, h - k + 4, bt),
+                           rng.integers(-3, wa - k + 4, bt)], -1)
+        rel = rng.uniform(-1.5, k + 0.5, (2, bt, s2))
+    if inside:
+        rel = rng.uniform(0.0, k - 1.001, (2, bt, s2))
+    ok = rng.random(bt) > 0.1
+    ok.reshape(b, t)[::4, 0] = False
+
+    def d(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=atlas.device)
+
+    return (atlas, d(starts, torch.int32), d(rel[0]), d(rel[1]),
+            d(ok, torch.bool))
+
+
+def _check_blocks(args, t):
+    """K2 and K4 against their plain versions on every pair, failed ones
+    included, at 1e-4."""
+    got = _launched(W.windows, *args, t=t)
+    want = W.windows_plain(*args, t=t)
+    assert float((got - want).abs().max()) <= 1e-4
+    got = _launched(incc.incc_blocks, *args, t=t)
+    want = incc.incc_blocks_plain(*args, t=t)
+    assert float((got - want).abs().max()) <= 1e-4
+    return got
+
+
+@pytest.mark.parametrize("wsize", [5, 7, 9, 11, 13, W.MAX_WSIZE])
+@pytest.mark.parametrize("t", [1, 6, 12, 32])
+def test_block_kernels_edge_shapes(setup, t, wsize):
+    """K2 and K4 at T = 1..32 and windows from 5 px to the largest
+    (register path up to wsize 11, recomputing path above)."""
+    atlas = setup["pyr"].atlas_u8
+    b = 32 if wsize <= 13 else 4
+    incc4 = _check_blocks(_block_case(atlas, t, wsize * wsize,
+                                      seed=t * 100 + wsize, b=b), t)
+    assert bool((incc4[::4, 0] == 2.0).all())
+
+
+@pytest.mark.parametrize("wsize", [7, 13])
+def test_block_kernels_at_the_atlas_end(setup, wsize):
+    """Windows on the last view at the atlas's last rows and columns (the
+    wide tap loads must stop at the allocation), on a random atlas as it
+    is and on a copy starting 5 bytes past an aligned address."""
+    rng = np.random.default_rng(wsize)
+    atlas = torch.tensor(rng.integers(0, 256, (3, 50, 70, 3), np.uint8),
+                         device=setup["dev"])
+    buf = torch.zeros(atlas.numel() + 5, dtype=torch.uint8,
+                      device=atlas.device)
+    shifted = buf[5:].view(atlas.shape)
+    shifted.copy_(atlas)
+    for a in (atlas, shifted):
+        _check_blocks(_block_case(a, 6, wsize * wsize, seed=wsize,
+                                  edge=True), 6)
+
+
+@pytest.mark.parametrize("wsize", [7, 11, 13])
+@pytest.mark.parametrize("t", [1, 6, 32])
+def test_block_kernels_inner_path(setup, t, wsize):
+    """Every tap inside its block, blocks anywhere on every view (those on
+    the atlas's first and last rows take the checked path), on a random
+    atlas as it is and on a copy starting 5 bytes past an aligned
+    address."""
+    rng = np.random.default_rng(t + wsize)
+    atlas = torch.tensor(rng.integers(0, 256, (3, 50, 70, 3), np.uint8),
+                         device=setup["dev"])
+    buf = torch.zeros(atlas.numel() + 5, dtype=torch.uint8,
+                      device=atlas.device)
+    shifted = buf[5:].view(atlas.shape)
+    shifted.copy_(atlas)
+    for a in (atlas, shifted):
+        _check_blocks(_block_case(a, t, wsize * wsize, seed=t * wsize,
+                                  b=16, inside=True), t)
+
+
+def test_block_kernels_without_ok_pairs(setup):
+    atlas = setup["pyr"].atlas_u8
+    args = list(_block_case(atlas, 6, 49, seed=5))
+    args[4] = torch.zeros_like(args[4])
+    _check_blocks(args, 6)
+    assert bool((W.windows(*args, t=6) == 0.0).all())
+    assert bool((incc.incc_blocks(*args, t=6) == 2.0).all())
+
+
+@pytest.mark.parametrize("near", [False, True])
+def test_block_kernels_on_flat_windows(setup, near):
+    """Flat windows (variance 0) and near-flat ones (a few pixels one
+    level up on a level of 200)."""
+    rng = np.random.default_rng(7)
+    img = np.full((3, 40, 60, 3), 200, np.uint8)
+    if near:
+        img[rng.random(img.shape[:3]) < 0.05] += 1
+    atlas = torch.tensor(img, device=setup["dev"])
+    _check_blocks(_block_case(atlas, 6, 49, seed=8), 6)
+
+
+def test_block_wrappers_reject_unsupported_shapes(setup):
+    atlas = setup["pyr"].atlas_u8
+    for s2 in (0, W.MAX_WSIZE ** 2 + 1):
+        args = _block_case(atlas, 6, s2, seed=9, b=2)
+        with pytest.raises(ValueError):
+            W.windows(*args, t=6)
+        with pytest.raises(ValueError):
+            incc.incc_blocks(*args, t=6)
+    args = _block_case(atlas, 33, 49, seed=9, b=2)
+    with pytest.raises(ValueError):
+        incc.incc_blocks(*args, t=33)
+    W.windows(*args, t=33)                    # K2 takes any T
+    with pytest.raises(ValueError):
+        W.windows(*args, t=6, k=0)
+
+
 @pytest.fixture(scope="module")
 def ablation(setup):
     """K5-K7 inputs at 16 patches x 6 views on the plane scene's atlas:

@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
@@ -166,11 +167,12 @@ def test_fan_lm_matches_jax_fan_lm(setup):
                             jnp.asarray(s["dscale"]), 3)
     JR.USE_PALLAS_INCC = True
     try:
+        # One jitted call: the eager LM dispatches ops while the
+        # interpret-mode kernel's callbacks still run, which can deadlock.
         with pltpu.force_tpu_interpret_mode():
-            jc, _, _, _ = JR.refine_patches(s["jc"], s["jp"], 0, 7, jprob,
-                                            jnp.asarray(coord0),
-                                            jnp.asarray(s["normal"]),
-                                            num_iters=6)
+            jc = jax.jit(lambda c, n: JR.refine_patches(
+                s["jc"], s["jp"], 0, 7, jprob, c, n, num_iters=6)[0])(
+                jnp.asarray(coord0), jnp.asarray(s["normal"]))
     finally:
         JR.USE_PALLAS_INCC = None
     tprob = TR.make_problem(s["tc"], 0, torch.tensor(coord0),

@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
@@ -186,10 +187,12 @@ def test_fan_v1_lm_matches_jax_fan_v1_lm(setup):
     JR.USE_PALLAS_INCC, JR.USE_FAN_V2 = True, False
     TR.USE_FAN_V2 = False
     try:
+        # One jitted call: the eager LM dispatches ops while the
+        # interpret-mode kernel's callbacks still run, which can deadlock.
         with pltpu.force_tpu_interpret_mode():
-            jc = JR.refine_patches(s["jc"], s["jp"], 0, 7, jprob,
-                                   jnp.asarray(coord0),
-                                   jnp.asarray(s["normal"]), num_iters=6)[0]
+            jc = jax.jit(lambda c, n: JR.refine_patches(
+                s["jc"], s["jp"], 0, 7, jprob, c, n, num_iters=6)[0])(
+                jnp.asarray(coord0), jnp.asarray(s["normal"]))
         tprob = TR.make_problem(s["tc"], 0, *map(torch.tensor, args), 3)
         tc = TR.refine_patches(s["tc"], s["tp"], 0, 7, tprob,
                                torch.tensor(coord0),
