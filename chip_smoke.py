@@ -2,17 +2,17 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --against DIR   # also time DIR's K1-K4
+    python3 chip_smoke.py --against DIR   # also time DIR's K1-K5, K7
 
 Run from the root of a checkout on a machine with one CUDA GPU (sm_90a,
 e.g. an H100) and the CUDA toolkit. With --against, DIR is another
 checkout of the repository (e.g. the parent commit, unpacked with `git
 archive`); its kernel library is built from its own sources, and its K1,
-K2, K3 and K4 are timed beside this tree's on the same inputs, in turns
-(DIR, this, this, DIR), in phases 3-9, and each phase logs the largest
-difference between the two libraries' outputs (K2's also whether they
-are equal bit for bit). Phases, each of which raises on failure (the
-script then exits non-zero):
+K2, K3 and K4 (phases 3-9) and its K5 and K7 full (phase 10) are timed
+beside this tree's on the same inputs, in turns (DIR, this, this, DIR);
+each phase logs the largest difference between the two libraries'
+outputs and whether they are equal bit for bit. Phases, each of which
+raises on failure (the script then exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the hand-written kernels (cmvs_pmvs_tpu_torch/csrc)
@@ -49,19 +49,20 @@ script then exits non-zero):
    their drivers (cmvs_pmvs_tpu_torch/scripts/ablate_fan*.py: 8192
    patches x 6 views, fan 4; K7 also fan 1): every mode against its
    plain version, bar 1e-4 (K7's moment sums relative to max(1, |x|));
-   K6 full beside F.grid_sample on pre-gathered tiles; then each
-   driver's own timed sweep of every mode.
+   K5 full and K7 full (fan 4 and fan 1) timed (with --against, in
+   turns with DIR's); K6 full beside F.grid_sample on pre-gathered
+   tiles; then each driver's own timed sweep of every mode.
 
-Kernel times (`timed`) are CUDA-event medians of calls each queued
-behind a device spin, so the host's part of a call overlaps the spin and
-the events time the device's work. Every kernel's launch counter is set
-to 0 just before each protocol run and before the ablation sweeps, and
-read just after; replays and comparisons do not count. The line before
-the last is a JSON object with each kernel's launches (in the run whose
-path it serves, and per run), error, times, and its bound: the larger
-of its compulsory bytes over the H100's 3.35 TB/s and its float32
-operations over the 67 TFLOP/s non-tensor peak, counted from this run's
-inputs. K2 and K4 read a pair's positions and taps only where its window
+Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
+of calls each queued behind a device spin, so the host's part of a call
+overlaps the spin and the events time the device's work. Every kernel's
+launch counter is set to 0 just before each protocol run and before the
+ablation sweeps, and read just after; replays and comparisons do not
+count. The line before the last is a JSON object with each kernel's
+launches (in the run whose path it serves, and per run), error, times,
+and its bound: the larger of its compulsory bytes over the H100's 3.35
+TB/s and its float32 operations over the 67 TFLOP/s non-tensor peak,
+counted from this run's inputs. K2 and K4 read a pair's positions and taps only where its window
 is needed (K2: ok pairs; K4: ok pairs of patches whose reference is ok),
 so only those count; every pair's `starts`, `ok` and output count (a
 failed pair still writes its zeros or its 2.0). Phases 4, 7 and the K2
@@ -83,7 +84,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4
 BATCH = 8192
-SLEEP_CYCLES = 400_000         # device spin before each timed call (~0.2 ms)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # float32 operations per (pair[, probe], sample) of each kernel:
@@ -151,28 +151,15 @@ def timed(fn, samples: int = 7) -> float:
     """Median device milliseconds of `fn` over `samples` runs: CUDA events
     around each call, queued behind a device spin so that the call's host
     work (argument checks, allocation, launch) is hidden."""
-    import torch
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    from cmvs_pmvs_tpu_torch.scripts.ablate_common import time_ms
+    return time_ms(fn, samples)[1]
 
 
 def call_ms(fn) -> float:
     """Median milliseconds of `fn` with its host work included (CUDA
     events right around each call, no spin): how PRs 1-3 timed kernels."""
     from cmvs_pmvs_tpu_torch.scripts.ablate_common import time_ms
-    return time_ms(fn, samples=7)[1]
+    return time_ms(fn, samples=7, spin=False)[1]
 
 
 def load_against(path: str):
@@ -226,6 +213,52 @@ def raw_block(lib, name, atlas, starts, relx, rely, ok, t: int,
     if rc != 0:
         raise RuntimeError(f"against library: cudaError {rc}")
     return out
+
+
+def raw_abl(lib, name, atlas, tilemap, geometry, fan: int):
+    """K5 (name "incc_fan_abl", geometry the geom rows) or K7
+    ("moments_abl", geometry the frames) of the kernel library `lib` in
+    mode full at the drivers' wsize and ppv, launched without the
+    wrapper."""
+    import torch
+    from cmvs_pmvs_tpu_torch.ops.ablate import moments_abl_lead
+    from cmvs_pmvs_tpu_torch.scripts.ablate_common import WSIZE
+    from cmvs_pmvs_tpu_torch.scripts.ablate_fan25 import PPV
+    b, t = tilemap.shape
+    n, h, wa, _ = atlas.shape
+    head = (atlas.data_ptr(), n, h, wa, tilemap.data_ptr(),
+            geometry.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "incc_fan_abl":
+        out = torch.empty((b, t, fan), dtype=torch.float32,
+                          device=atlas.device)
+        rc = lib.cmvs_fan_abl(*head, out.data_ptr(), b, t, fan, WSIZE, 0,
+                              stream)
+    else:
+        out = torch.empty((b, t, fan, 9), dtype=torch.float32,
+                          device=atlas.device)
+        rc = lib.cmvs_moments_abl(*head, out.data_ptr(), b, t, fan, WSIZE,
+                                  PPV, moments_abl_lead(fan), 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"against library: cudaError {rc}")
+    return out
+
+
+def abl_turns(label: str, this, theirs) -> dict:
+    """Device ms of `this` (a wrapper's full-mode call) and, where
+    `theirs` (the other library's launch on the same inputs) is given, in
+    turns with it, logging the largest difference between the two outputs
+    and whether they are equal bit for bit."""
+    import torch
+    against = ""
+    if theirs is not None:
+        got, ref = this(), theirs()
+        torch.cuda.synchronize()
+        against = (f" (against: max|diff| {float((got - ref).abs().max()):.3e}"
+                   f", bit-equal {torch.equal(got, ref)})")
+    turns = in_turns(this, theirs)
+    log(f"{label} full: {turns_text(turns)}{against}")
+    return turns
 
 
 def raw_launch(other, name: str):
@@ -366,11 +399,16 @@ def fan_atlas_bytes(atlas, vid, frames, ok, tile_org=None,
                        torch.cat([c[m] for c, m in zip(cols, masks)]))
 
 
-def against_err(other, args, want, pair) -> float | None:
-    """max |diff| of the `other` library's kernel from the plain version."""
+def against_text(other, args, got, want, pair) -> str:
+    """The `other` library's kernel on `args`: its max |diff| from the
+    plain version `want` on `pair`, and whether it equals this tree's
+    output `got` bit for bit."""
     if other is None:
-        return None
-    return float((raw_fan(other, *args) - want).abs()[pair].max())
+        return ""
+    import torch
+    theirs = raw_fan(other, *args)
+    return (f"(against {float((theirs - want).abs()[pair].max()):.3e}, "
+            f"bit-equal {torch.equal(got, theirs)}) ")
 
 
 def phase_k1(pyr, inputs, other=None):
@@ -384,7 +422,7 @@ def phase_k1(pyr, inputs, other=None):
         torch.cuda.synchronize()
         pair = ok & ok[:, 0:1, :]
         err = float((got - want).abs()[pair].max())
-        err_o = against_err(other, args, want, pair)
+        against = against_text(other, args, got, want, pair)
         turns = in_turns(lambda: fan2.incc_fan(*args), other and (
             lambda: raw_fan(other, *args)))
         host_ms = call_ms(lambda: fan2.incc_fan(*args))
@@ -394,8 +432,8 @@ def phase_k1(pyr, inputs, other=None):
                   + fan_atlas_bytes(pyr.atlas_u8, vid, frames, ok))
         log(f"K1 fan={fan}: B={BATCH} T=6 valid pairs "
             f"{float(pair.float().mean()):.4f} max|diff| {err:.3e} "
-            + (f"(against {err_o:.3e}) " if other is not None else "")
-            + f"{turns_text(turns)}, with host {host_ms:.4f} ms; plain "
+            + against + f"{turns_text(turns)}, with host {host_ms:.4f} "
+            f"ms; plain "
             f"{plain_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
             f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP)")
         if not err <= TOL:
@@ -419,7 +457,7 @@ def phase_k3(pyr, inputs, other=None):
         torch.cuda.synchronize()
         pair = ok & ok[:, 0:1, :]
         err = float((got - want).abs()[pair].max())
-        err_o = against_err(other, args, want, pair)
+        against = against_text(other, args, got, want, pair)
         vs_k1 = float((got - k1).abs()[pair].max())
         turns = in_turns(lambda: fan.incc_fan_v1(*args), other and (
             lambda: raw_fan(other, *args)))
@@ -431,8 +469,8 @@ def phase_k3(pyr, inputs, other=None):
                   nbytes(vid, org, frames, ok, got)
                   + fan_atlas_bytes(pyr.atlas_u8, vid, frames, ok, org))
         log(f"K3 fan={nfan}: B={BATCH} T=6 max|diff| {err:.3e} "
-            + (f"(against {err_o:.3e}) " if other is not None else "")
-            + f"{turns_text(turns)}, with host {host_ms:.4f} ms; plain "
+            + against + f"{turns_text(turns)}, with host {host_ms:.4f} "
+            f"ms; plain "
             f"{plain_ms:.4f} ms K1 {k1_ms:.4f} ms bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
             f"{b['flops']} FLOP); vs K1 max|diff| {vs_k1:.3e}, "
@@ -625,9 +663,10 @@ def grid_sample_k6(inp) -> tuple:
     return timed(call), err
 
 
-def phase_ablation(dev) -> dict:
+def phase_ablation(dev, other=None) -> dict:
     """Phase 10: K5-K7 against their plain versions on their drivers'
-    inputs, every mode; the bounds of their full modes; then the
+    inputs, every mode; their full modes' device ms (K5 and K7 in turns
+    with the `other` library's where given) and bounds; then the
     drivers' own sweeps with the launch counters zeroed before and read
     after. Returns {"results": per kernel, "launches": per wrapper}."""
     from cmvs_pmvs_tpu_torch.ops import ablate as A
@@ -650,8 +689,11 @@ def phase_ablation(dev) -> dict:
     out = A.incc_fan_abl(*a5, fan=D5.FAN, mode="full")
     rx, ry = A.fan_abl_positions(i5["geom"], *i5["tilemap"].shape, D5.FAN,
                                  AC.WSIZE)
+    turns = abl_turns(
+        "K5", lambda: A.incc_fan_abl(*a5, fan=D5.FAN, mode="full"),
+        other and (lambda: raw_abl(other, "incc_fan_abl", *a5, D5.FAN)))
     res["incc_fan_abl"] = dict(
-        max_abs_err=max(errs.values()),
+        **turns, max_abs_err=max(errs.values()),
         plain_ms=timed(lambda: A.incc_fan_abl_plain(*a5, fan=D5.FAN,
                                                     mode="full")),
         **bound("incc_fan_abl", rx.numel(),
@@ -669,10 +711,11 @@ def phase_ablation(dev) -> dict:
         lambda m: A.interp_abl_plain(*a6, mode=m, tiny=True))
     out = A.interp_abl(*a6, mode="full")
     lib_ms, lib_err = grid_sample_k6(i6)
-    log(f"K6 full: F.grid_sample {lib_ms:.4f} ms, max|diff| from the "
-        f"kernel {lib_err:.3e}")
+    ms = timed(lambda: A.interp_abl(*a6, mode="full"))
+    log(f"K6 full: kernel {ms:.4f} ms; F.grid_sample {lib_ms:.4f} ms, "
+        f"max|diff| from the kernel {lib_err:.3e}")
     res["interp_abl"] = dict(
-        max_abs_err=max(*errs.values(), *errs_tiny.values()),
+        ms=ms, max_abs_err=max(*errs.values(), *errs_tiny.values()),
         plain_ms=timed(lambda: A.interp_abl_plain(*a6, mode="full")),
         library_ms=lib_ms,
         **bound("interp_abl", i6["rel"][0].numel(),
@@ -680,7 +723,7 @@ def phase_ablation(dev) -> dict:
                 + tile_tap_bytes(i6["atlas"], i6["tilemap"], i6["rel"][0],
                                  i6["rel"][1])))
 
-    errs = {}
+    errs, k7_turns = {}, {}
     for fan in D7.FANS:
         a7 = (i7["atlas"], i7["tilemap"], i7[f"frames{fan}"])
         errs.update({(fan, m): e for m, e in check_modes(
@@ -688,11 +731,14 @@ def phase_ablation(dev) -> dict:
             lambda m: A.moments_abl(*a7, mode=m, ppv=D7.PPV),
             lambda m: A.moments_abl_plain(*a7, mode=m, ppv=D7.PPV),
             rel=True).items()})
+        k7_turns[fan] = abl_turns(
+            f"K7 fan={fan}", lambda: A.moments_abl(*a7, mode="full"),
+            other and (lambda: raw_abl(other, "moments_abl", *a7, fan)))
     a7 = (i7["atlas"], i7["tilemap"], i7["frames4"])
     out = A.moments_abl(*a7, mode="full")
     rx, ry = window_positions(i7["frames4"], AC.WSIZE)
     res["moments_abl"] = dict(
-        max_abs_err=max(errs.values()),
+        **k7_turns[4], max_abs_err=max(errs.values()),
         plain_ms=timed(lambda: A.moments_abl_plain(*a7, mode="full")),
         **bound("moments_abl", rx.numel(),
                 nbytes(*a7[1:], out)
@@ -709,7 +755,7 @@ def phase_ablation(dev) -> dict:
     log(f"ablation sweeps: {time.time() - t0:.2f} s, kernel launches "
         f"{launches}")
     # dma_only's loads must survive the compiler: it keeps a real share
-    # of full's time (measured 55% for K5, 99% for K6 on an H100)
+    # of full's time (measured 56% for K5, 98% for K6 on an H100)
     for name, dma, full in (("K5", s5["random", "dma_only"],
                              s5["random", "full"]),
                             ("K6", s6["dma_only"], s6["full"])):
@@ -717,11 +763,12 @@ def phase_ablation(dev) -> dict:
             raise AssertionError(f"{name} dma_only {dma[1]} ms < 20% of "
                                  f"full {full[1]} ms: loads elided?")
     for name, (_, median) in sweeps.items():
-        res[name]["ms"] = median
         b = res[name]
-        log(f"{name} full: kernel {median:.4f} ms (median) plain "
-            f"{b['plain_ms']:.4f} ms bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']}: {b['bytes']} B, {b['flops']} FLOP)")
+        log(f"{name} full: kernel {b['ms']:.4f} ms (sweep median "
+            f"{median:.4f}) plain {b['plain_ms']:.4f} ms bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, "
+            f"{b['flops']} FLOP; {b['bound_ms'] / b['ms'] * 100:.1f}% of "
+            f"it)")
         if launches[name] <= 0:
             raise AssertionError(f"ablation: {name} was not launched: "
                                  f"{launches}")
@@ -841,6 +888,7 @@ def replay(calls, launch) -> dict:
     `launch`, each queued behind a device spin: the total and, by fan
     (None for K2 and K4), launches and ms."""
     import torch
+    from cmvs_pmvs_tpu_torch.scripts.ablate_common import SLEEP_CYCLES
     timed_calls = []
     for args, kwargs in calls:
         start = torch.cuda.Event(enable_timing=True)
@@ -940,8 +988,8 @@ def protocol_kernel_time(label: str, name: str, calls: list, other=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="another checkout whose K1-K4 are timed "
-                         "beside this tree's")
+                    help="another checkout whose K1-K5 and K7 are "
+                         "timed beside this tree's")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "cmvs_pmvs_tpu_torch")):
         print("chip_smoke: the port (cmvs_pmvs_tpu_torch/) is not beside "
@@ -991,7 +1039,7 @@ def main() -> int:
                                    calls["incc_blocks"], other))
     del calls
     shutil.rmtree(root, ignore_errors=True)
-    ablation = phase_ablation(dev)
+    ablation = phase_ablation(dev, other)
     runs["ablation"] = ablation["launches"]
     abl = ablation["results"]
 

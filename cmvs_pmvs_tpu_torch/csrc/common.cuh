@@ -23,7 +23,6 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // reference zero-pads its tiles).
 
 constexpr int kTile = 32;            // tile extent in px
-constexpr int kTileRow = 3 * kTile;  // bytes per staged tile row
 constexpr int kTileStride = 12;      // tile origin stride in px
 
 // A tile: pixel (0, 0) at `px`, rows `row` bytes apart, pixels (x, y) with
@@ -32,11 +31,6 @@ struct Tile {
   const uint8_t* px;
   int row, w, h;
 };
-
-// A tile staged in shared memory by `stage_tile`.
-__device__ __forceinline__ Tile staged_tile(const uint8_t* smem) {
-  return {smem, kTileRow, kTile, kTile};
-}
 
 // The tile at atlas pixel (ox, oy) of view n, read in place.
 __device__ __forceinline__ Tile atlas_tile(const uint8_t* atlas, int n, int H,
@@ -53,27 +47,6 @@ __device__ __forceinline__ void tile_rgb(Tile t, int x, int y, float rgb[3]) {
   rgb[0] = in ? static_cast<float>(p[0]) : 0.f;
   rgb[1] = in ? static_cast<float>(p[1]) : 0.f;
   rgb[2] = in ? static_cast<float>(p[2]) : 0.f;
-}
-
-// One warp copies the tile at atlas pixel (ox, oy) of view n into shared
-// memory tile[kTile * kTileRow], byte by byte, pixels past the atlas edge
-// as 0. Returns the sum of the bytes this lane copied.
-__device__ __forceinline__ unsigned stage_tile(uint8_t* tile,
-                                               const uint8_t* atlas, int n,
-                                               int H, int WA, int ox, int oy,
-                                               int lane) {
-  unsigned sum = 0;
-  for (int i = lane; i < kTile * kTileRow; i += 32) {
-    const int y = oy + i / kTileRow;
-    const int xb = ox * 3 + i % kTileRow;
-    const uint8_t v =
-        (y >= 0 && y < H && xb >= 0 && xb < WA * 3)
-            ? atlas[(static_cast<long long>(n) * H + y) * WA * 3 + xb]
-            : 0;
-    tile[i] = v;
-    sum += v;
-  }
-  return sum;
 }
 
 // The TPU kernels' bilinear hat weight of a tap at distance d.
@@ -148,14 +121,15 @@ __device__ __forceinline__ float floor_int(float x, int& i) {
   return m - 12582912.f;
 }
 
-// RGB of the atlas pixel at byte p and of its right neighbour, or of the
-// same pixel again where `adjacent` is false (the clamped right edge).
-// wide: the two aligned 8-byte words from p's word on lie inside the
-// atlas; the first (and the second where the 6 bytes cross it) is read
-// and the bytes are cut out with funnel shifts. Else byte by byte.
-__device__ __forceinline__ void row_pair(const uint8_t* p, bool adjacent,
-                                         bool wide, float a[3], float b[3]) {
-  unsigned lo, hi;  // bytes 0-3 and 4-7 from p
+// Bytes 0-3 (lo) and 4-7 (hi) from p, of which bytes 0-5 hold the atlas
+// pixel at byte p and its right neighbour; where `adjacent` is false (the
+// clamped right edge) only the pixel's bytes 0-2 are read. wide: the two
+// aligned 8-byte words from p's word on lie inside the atlas; the first
+// (and the second where the 6 bytes cross it) is read and the bytes are
+// cut out with funnel shifts. Else byte by byte.
+__device__ __forceinline__ void row_words(const uint8_t* p, bool adjacent,
+                                          bool wide, unsigned& lo,
+                                          unsigned& hi) {
   if (wide) {
     const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
     const uint2* w =
@@ -173,12 +147,28 @@ __device__ __forceinline__ void row_pair(const uint8_t* p, bool adjacent,
     lo = p[0] | p[1] << 8 | p[2] << 16 | b3 << 24;
     hi = adjacent ? p[4] | p[5] << 8 : 0u;
   }
+}
+
+// The pixel's RGB (a) and its right neighbour's (b; the pixel again where
+// `adjacent` is false) from row_words' lo and hi.
+__device__ __forceinline__ void pair_rgb(unsigned lo, unsigned hi,
+                                         bool adjacent, float a[3],
+                                         float b[3]) {
   const unsigned pb = __byte_perm(lo, hi, adjacent ? 0x0543u : 0x0210u);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     a[c] = byte_float(lo, c);
     b[c] = byte_float(pb, c);
   }
+}
+
+// RGB of the atlas pixel at byte p and of its right neighbour (or of the
+// pixel again where `adjacent` is false), read as row_words reads them.
+__device__ __forceinline__ void row_pair(const uint8_t* p, bool adjacent,
+                                         bool wide, float a[3], float b[3]) {
+  unsigned lo, hi;
+  row_words(p, adjacent, wide, lo, hi);
+  pair_rgb(lo, hi, adjacent, a, b);
 }
 
 // A warp's view metadata, loaded once: lane j < T holds view j's plane,

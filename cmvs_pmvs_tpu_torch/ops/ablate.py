@@ -21,7 +21,12 @@ kernels round wy (all three) and K5's x-weighted rows to bf16.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 CUDA kernel (csrc/ablate.cu, one instantiation per mode) for CUDA
-tensors, counting launches in `.launches`.
+tensors, counting launches in `.launches`; a CUDA call at a shape the
+kernel does not take raises (`check_fan_abl_shape`,
+`check_moments_abl_shape`). K5 and K7 run on the body of the fan
+kernels K1 and K3 (one warp per (patch, probe) walking the views, the
+window in registers, taps read in place as 8-byte words), so their mode
+sweeps split that body's time into stages.
 """
 from __future__ import annotations
 
@@ -30,10 +35,34 @@ import torch
 from . import kernels
 from .fan import TILE_PX, TILE_STRIDE, tile_px, window_positions
 
+# Mode names in the order of csrc/ablate.cu's mode enums.
 FAN_ABL_MODES = ("full", "no_moments", "wy_only", "dma_only")
 INTERP_ABL_MODES = ("full", "no_x", "no_mm", "wy_only", "no_fold",
                     "dma_only")
 MOMENTS_ABL_MODES = ("full", "no_moments", "no_expand", "body_only")
+# The largest window K5 takes (csrc/ablate.cu kK5MaxWsize; windows above
+# 128 samples recompute their samples) and K7's sample limit (kK7MaxS2,
+# the TPU harness's: the plain version holds to it too).
+FAN_ABL_MAX_WSIZE = 63
+MOMENTS_ABL_MAX_S2 = 64
+
+
+def check_fan_abl_shape(name: str, t: int, wsize: int):
+    """Raise on a view count or window K5 does not take."""
+    if not 1 <= t <= 32:
+        raise ValueError(f"{name}: T={t} views, the kernel takes 1..32")
+    if not 1 <= wsize <= FAN_ABL_MAX_WSIZE:
+        raise ValueError(f"{name}: wsize={wsize}, the kernel takes "
+                         f"1..{FAN_ABL_MAX_WSIZE}")
+
+
+def check_moments_abl_shape(name: str, t: int, wsize: int):
+    """Raise on a view count or window K7 does not take."""
+    if not 1 <= t <= 32:
+        raise ValueError(f"{name}: T={t} views, the kernel takes 1..32")
+    if not 1 <= wsize * wsize <= MOMENTS_ABL_MAX_S2:
+        raise ValueError(f"{name}: wsize={wsize}, the kernel takes windows "
+                         f"of 1..{MOMENTS_ABL_MAX_S2} samples")
 
 
 def _mode_index(modes, mode: str) -> int:
@@ -163,8 +192,7 @@ def incc_fan_abl(atlas_u8, tilemap, geom, *, fan: int, mode: str,
                                   mode=mode, wsize=wsize)
     b, t = tilemap.shape
     dev = geom.device
-    if not 1 <= t <= 32:
-        raise ValueError(f"incc_fan_abl: T={t} views, the kernel takes 1..32")
+    check_fan_abl_shape("incc_fan_abl", t, wsize)
     n, h, wa, _ = atlas_u8.shape
     kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
     kernels.require(tilemap, "tilemap", torch.int32, (b, t), dev)
@@ -307,7 +335,7 @@ def moments_abl_plain(atlas_u8, tilemap, frames, *, mode: str,
                             `moments_abl_lead(fan)`."""
     _mode_index(MOMENTS_ABL_MODES, mode)
     b, t, fan, _ = frames.shape
-    if wsize * wsize > 64:
+    if wsize * wsize > MOMENTS_ABL_MAX_S2:
         raise ValueError(f"moments_abl: wsize={wsize}, at most 8")
     if mode in ("full", "no_moments"):
         rx, ry = window_positions(frames, wsize)
@@ -340,10 +368,7 @@ def moments_abl(atlas_u8, tilemap, frames, *, mode: str, wsize: int = 7,
                                  wsize=wsize, ppv=ppv)
     b, t, fan, _ = frames.shape
     dev = frames.device
-    if not 1 <= t <= 32:
-        raise ValueError(f"moments_abl: T={t} views, the kernel takes 1..32")
-    if wsize * wsize > 64:
-        raise ValueError(f"moments_abl: wsize={wsize}, at most 8")
+    check_moments_abl_shape("moments_abl", t, wsize)
     n, h, wa, _ = atlas_u8.shape
     kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
     kernels.require(tilemap, "tilemap", torch.int32, (b, t), dev)

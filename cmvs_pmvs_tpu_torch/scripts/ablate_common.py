@@ -1,6 +1,6 @@
 """Shared parts of the fan-kernel ablation drivers (ablate_fan, ablate_fan2,
 ablate_fan25): the kernel bench shape, the synthetic atlas and tilemap,
-CUDA-event timing and the report lines."""
+CUDA-event timing of device work and the report lines."""
 from __future__ import annotations
 
 import subprocess
@@ -13,6 +13,7 @@ from ..ops.fan import tile_counts
 N, H, WA = 6, 480, 1280          # views, atlas rows, atlas columns
 B, T, WSIZE = 8192, 6, 7         # patches, views per patch, window
 S2 = WSIZE * WSIZE
+SLEEP_CYCLES = 400_000  # device spin queued before a timed call (~0.2 ms)
 
 
 def draw_tilemap_inputs(rng, batch: int):
@@ -45,10 +46,14 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, samples: int, reps: int = 1, warmup: int = 2):
+def time_ms(fn, samples: int, reps: int = 1, warmup: int = 2,
+            spin: bool = True):
     """(min, median) milliseconds per call of `fn` on the current CUDA
     device: `samples` CUDA-event intervals of `reps` back-to-back calls
-    each, after `warmup` calls."""
+    each, after `warmup` calls. spin: each interval is queued behind a
+    device spin of SLEEP_CYCLES per call, so the calls' host work
+    (argument checks, allocation, launch) overlaps the spin and the events
+    time the device's work; without it the host's part is timed too."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -56,6 +61,8 @@ def time_ms(fn, samples: int, reps: int = 1, warmup: int = 2):
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SLEEP_CYCLES * reps)
         start.record()
         for _ in range(reps):
             fn()

@@ -1,13 +1,16 @@
-"""Fan-kernel ablation of K5 (the v1 fan INCC at K3's design) on the GPU.
+"""Fan-kernel ablation of K5 (the v1 fan INCC on K1's and K3's body) on
+the GPU.
 
 Port of scripts/ablate_fan.py. At the kernel bench shape (B = 8192
 patches, T = 6 views, fan = 4, wsize = 7) on a synthetic atlas and
 tilemap drawn from default_rng(0) as the reference script draws them, it
 times `ops.ablate.incc_fan_abl` in every mode, each a cut of the kernel's
-stages: full; no_moments (staging and interpolation); wy_only (staging
-and the y-interpolation of one tile column); dma_only (tile staging
+stages: full; no_moments (tap loads and interpolation); wy_only (tap
+loads and the y-interpolation of tile column 0); dma_only (the tap loads
 alone). First the tile-locality sweep: full and dma_only with the pairs'
 tiles random, sorted by (view, tile row, tile column) and all one tile.
+Times are device ms (`ablate_common.time_ms`: each call queued behind a
+device spin, so its host work is hidden).
 
     python -m cmvs_pmvs_tpu_torch.scripts.ablate_fan [--const-imap]
 

@@ -8,7 +8,8 @@ mode: full (bilinear RGB); no_x (y-interpolation summed over all 32 tile
 columns, no x weights: more taps than full); no_mm (the hat weights
 alone, no taps); wy_only (the y weights alone); no_fold (x-weighted
 y-interpolations of 8 tile columns, unsummed); dma_only (the taps' bytes
-alone).
+alone). Times are device ms (`ablate_common.time_ms`: each sample of 10
+calls queued behind a device spin, so their host work is hidden).
 
     python -m cmvs_pmvs_tpu_torch.scripts.ablate_fan2 [--const-imap]
         [--tiny-out]

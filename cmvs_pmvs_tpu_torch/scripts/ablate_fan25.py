@@ -1,5 +1,5 @@
 """Fan-kernel ablation of K7 (v2.5: frame expansion, interpolation,
-moments) on the GPU.
+moments, on K1's body) on the GPU.
 
 Port of scripts/ablate_fan25.py. At the kernel bench shape (B = 8192
 patches, T = 6 views, wsize = 7; fan 4 and fan 1) on a synthetic atlas,
@@ -7,7 +7,9 @@ tilemap and per-probe affine frames drawn from default_rng(0) as the
 reference script draws them, it times `ops.ablate.moments_abl` in every
 mode: full; no_moments (no moment sums: channel 0 of the first windows
 of every group of 4 patches written); no_expand (samples on the fixed
-lattice + 14 px instead of the frames); body_only (both cuts).
+lattice + 14 px instead of the frames); body_only (both cuts). Times are
+device ms (`ablate_common.time_ms`: each sample of 10 calls queued behind
+a device spin, so their host work is hidden).
 
     python -m cmvs_pmvs_tpu_torch.scripts.ablate_fan25
         [--const-imap | --dyn-const-imap]

@@ -468,6 +468,131 @@ def test_moments_abl_kernel_matches_plain(ablation, mode, fan):
         <= 1e-4
 
 
+def _abl_case(atlas, b, t, wsize, seed, edge=False):
+    """Random K5 and K7 arguments on `atlas`: tilemap [b, t], K5 geometry
+    (positions reaching 2 px past the tile, lo rows of up to a pixel) and
+    K7 frames [b, t, 4, 6] (fan 1: the first probe). edge: the first half
+    of the patches on view 0's first tile row with windows reaching the
+    atlas's first row, the second half on the last view's last tile (past
+    the atlas edge) with windows reaching its last rows and columns."""
+    n, h, wa, _ = atlas.shape
+    ty, tx = F1.tile_counts(h, wa)
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, n, (b, t))
+    tyi = rng.integers(0, ty, (b, t))
+    txi = rng.integers(0, tx, (b, t))
+    probes = b * t * 4
+    geom = np.zeros((4, probes, 4), np.float32)
+    geom[0:2, :, 0] = rng.uniform(-2.0, 33.0, (2, probes))
+    geom[2:4, :, 0] = rng.uniform(-0.5, 1.0, (2, probes))
+    geom[0, :, 1], geom[1, :, 2] = rng.uniform(0.75, 1.25, (2, probes))
+    geom[1, :, 1], geom[0, :, 2] = rng.uniform(-0.25, 0.25, (2, probes))
+    geom[2, :, 1], geom[3, :, 2] = rng.uniform(-1e-3, 1e-3, (2, probes))
+    fr = np.concatenate([rng.uniform(-2.0, 33.0, (b, t, 4, 2)),
+                         rng.uniform(0.75, 1.25, (b, t, 4, 4))], -1)
+    fr[..., 3:5] -= 1.0                  # off-diagonal terms in -0.25..0.25
+    if edge:
+        half, m = b // 2, wsize // 2
+        v[:half], tyi[:half] = 0, 0
+        v[half:], tyi[half:], txi[half:] = n - 1, ty - 1, tx - 1
+        th = min(h - (ty - 1) * 12, 32)
+        tw = min(wa - (tx - 1) * 12, 32)
+        g = geom.reshape(4, b, t, 4, 4)
+        top = rng.uniform(-1.5, 2.0, (half, t, 4)) + m
+        g[1, :half, ..., 0], fr[:half, ..., 1] = top, top
+        g[1, half:, ..., 0], fr[half:, ..., 1] = rng.uniform(
+            -1.0, 1.5, (2, b - half, t, 4)) + th - 1 - m
+        g[0, half:, ..., 0], fr[half:, ..., 0] = rng.uniform(
+            -1.0, 1.5, (2, b - half, t, 4)) + tw - 1 - m
+    tilemap = ((v << 20) | (tyi << 10) | txi).astype(np.int32)
+
+    def d(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=atlas.device)
+
+    return (d(tilemap, torch.int32), d(geom.reshape(4, -1)),
+            {4: d(fr), 1: d(fr[:, :, :1])})
+
+
+def _check_k5(atlas, tilemap, geom, wsize, modes=A.FAN_ABL_MODES):
+    for mode in modes:
+        args = (atlas, tilemap, geom)
+        got = _launched(A.incc_fan_abl, *args, fan=4, mode=mode, wsize=wsize)
+        want = A.incc_fan_abl_plain(*args, fan=4, mode=mode, wsize=wsize)
+        assert float((got - want).abs().max()) <= 1e-4, mode
+
+
+def _check_k7(atlas, tilemap, frames, wsize, modes=A.MOMENTS_ABL_MODES):
+    """1e-4 relative, as in test_moments_abl_kernel_matches_plain."""
+    for fan, fr in frames.items():
+        for mode in modes:
+            got = _launched(A.moments_abl, atlas, tilemap, fr, mode=mode,
+                            wsize=wsize)
+            want = A.moments_abl_plain(atlas, tilemap, fr, mode=mode,
+                                       wsize=wsize)
+            assert got.shape == want.shape
+            err = (got - want).abs() / want.abs().clamp(min=1.0)
+            assert float(err.max()) <= 1e-4, (fan, mode)
+
+
+@pytest.mark.parametrize("wsize", [7, 13])
+@pytest.mark.parametrize("t", [1, 6, 32])
+@pytest.mark.parametrize("mode", A.FAN_ABL_MODES)
+def test_incc_fan_abl_kernel_shapes(setup, mode, t, wsize):
+    """K5 at T = 1..32 on the register path (wsize 7) and the
+    recomputing one (wsize 13)."""
+    atlas = setup["pyr"].atlas_u8
+    tilemap, geom, _ = _abl_case(atlas, 8, t, wsize, seed=t * 10 + wsize)
+    _check_k5(atlas, tilemap, geom, wsize, (mode,))
+
+
+@pytest.mark.parametrize("wsize", [5, 7, 8])
+@pytest.mark.parametrize("t", [1, 6, 32])
+@pytest.mark.parametrize("mode", A.MOMENTS_ABL_MODES)
+def test_moments_abl_kernel_shapes(setup, mode, t, wsize):
+    """K7 at T = 1..32, one and two samples a lane, fan 4 and 1."""
+    atlas = setup["pyr"].atlas_u8
+    tilemap, _, frames = _abl_case(atlas, 8, t, wsize, seed=t * 10 + wsize)
+    _check_k7(atlas, tilemap, frames, wsize, (mode,))
+
+
+@pytest.mark.parametrize("wsize", [7, 13])
+def test_ablation_kernels_at_the_atlas_edges(setup, wsize):
+    """Taps on the atlas's first row (view 0) and last rows and columns
+    (the last view), whose words are read byte by byte, and tiles past the
+    atlas edge, on a random atlas as it is and on a copy starting 5 bytes
+    past an aligned address; K7 at wsize 7 (it takes at most 64
+    samples)."""
+    rng = np.random.default_rng(wsize)
+    atlas = torch.tensor(rng.integers(0, 256, (3, 50, 70, 3), np.uint8),
+                         device=setup["dev"])
+    buf = torch.zeros(atlas.numel() + 5, dtype=torch.uint8,
+                      device=atlas.device)
+    shifted = buf[5:].view(atlas.shape)
+    shifted.copy_(atlas)
+    for a in (atlas, shifted):
+        tilemap, geom, frames = _abl_case(a, 8, 6, wsize, seed=wsize,
+                                          edge=True)
+        _check_k5(a, tilemap, geom, wsize)
+        if wsize == 7:
+            _check_k7(a, tilemap, frames, wsize)
+
+
+def test_ablation_wrappers_reject_unsupported_shapes(setup):
+    atlas = setup["pyr"].atlas_u8
+    tilemap, geom, frames = _abl_case(atlas, 4, 6, 7, seed=1)
+    for wsize in (0, A.FAN_ABL_MAX_WSIZE + 1):
+        with pytest.raises(ValueError):
+            A.incc_fan_abl(atlas, tilemap, geom, fan=4, mode="full",
+                           wsize=wsize)
+    with pytest.raises(ValueError):
+        A.moments_abl(atlas, tilemap, frames[4], mode="full", wsize=9)
+    tilemap, geom, frames = _abl_case(atlas, 4, 33, 7, seed=1)
+    with pytest.raises(ValueError):
+        A.incc_fan_abl(atlas, tilemap, geom, fan=4, mode="full")
+    with pytest.raises(ValueError):
+        A.moments_abl(atlas, tilemap, frames[4], mode="full")
+
+
 def test_wrappers_reject_bad_arguments(setup):
     s = setup
     atlas = s["pyr"].atlas_u8
