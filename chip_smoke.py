@@ -2,13 +2,13 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --against DIR   # also time DIR's K1-K5, K7
+    python3 chip_smoke.py --against DIR   # also time DIR's K1-K7
 
 Run from the root of a checkout on a machine with one CUDA GPU (sm_90a,
 e.g. an H100) and the CUDA toolkit. With --against, DIR is another
 checkout of the repository (e.g. the parent commit, unpacked with `git
 archive`); its kernel library is built from its own sources, and its K1,
-K2, K3 and K4 (phases 3-9) and its K5 and K7 full (phase 10) are timed
+K2, K3 and K4 (phases 3-9) and its K5, K6 and K7 full (phase 10) are timed
 beside this tree's on the same inputs, in turns (DIR, this, this, DIR);
 each phase logs the largest difference between the two libraries'
 outputs and whether they are equal bit for bit. Phases, each of which
@@ -49,9 +49,10 @@ raises on failure (the script then exits non-zero):
    their drivers (cmvs_pmvs_tpu_torch/scripts/ablate_fan*.py: 8192
    patches x 6 views, fan 4; K7 also fan 1): every mode against its
    plain version, bar 1e-4 (K7's moment sums relative to max(1, |x|));
-   K5 full and K7 full (fan 4 and fan 1) timed (with --against, in
-   turns with DIR's); K6 full beside F.grid_sample on pre-gathered
-   tiles; then each driver's own timed sweep of every mode.
+   K6 also with tiny output; K5 full, K6 full and K7 full (fan 4 and
+   fan 1) timed (with --against, in turns with DIR's); K6 full beside
+   F.grid_sample on pre-gathered tiles; then each driver's own timed
+   sweep of every mode.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -239,6 +240,32 @@ def raw_abl(lib, name, atlas, tilemap, geometry, fan: int):
                           device=atlas.device)
         rc = lib.cmvs_moments_abl(*head, out.data_ptr(), b, t, fan, WSIZE,
                                   PPV, moments_abl_lead(fan), 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"against library: cudaError {rc}")
+    return out
+
+
+def raw_interp(lib, atlas, tilemap, rel):
+    """K6 (`interp_abl`) of the kernel library `lib` in mode full at the
+    driver's ppv, launched without the wrapper: through the entry point of
+    the warp-per-window K6 (B, T, fan, S2, ppv, tiny) where `lib` binds
+    that one, else through this tree's arguments."""
+    import torch
+    from cmvs_pmvs_tpu_torch.ops.ablate import interp_abl_args
+    from cmvs_pmvs_tpu_torch.scripts.ablate_fan2 import PPV
+    _, b, t, fan, s2 = rel.shape
+    n, h, wa, _ = atlas.shape
+    out = torch.empty((3, b, t, fan, s2), dtype=torch.float32,
+                      device=rel.device)
+    fn = lib.cmvs_interp_abl
+    stream = torch.cuda.current_stream().cuda_stream
+    if len(fn.argtypes) == 15:
+        rc = fn(atlas.data_ptr(), n, h, wa, tilemap.data_ptr(),
+                rel.data_ptr(), out.data_ptr(), b, t, fan, s2, PPV, 0, 0,
+                stream)
+    else:
+        rc = fn(*interp_abl_args(atlas, tilemap, rel, out, 0, PPV, False),
+                stream)
     if rc != 0:
         raise RuntimeError(f"against library: cudaError {rc}")
     return out
@@ -665,8 +692,8 @@ def grid_sample_k6(inp) -> tuple:
 
 def phase_ablation(dev, other=None) -> dict:
     """Phase 10: K5-K7 against their plain versions on their drivers'
-    inputs, every mode; their full modes' device ms (K5 and K7 in turns
-    with the `other` library's where given) and bounds; then the
+    inputs, every mode; their full modes' device ms (in turns with the
+    `other` library's where given) and bounds; then the
     drivers' own sweeps with the launch counters zeroed before and read
     after. Returns {"results": per kernel, "launches": per wrapper}."""
     from cmvs_pmvs_tpu_torch.ops import ablate as A
@@ -710,12 +737,14 @@ def phase_ablation(dev, other=None) -> dict:
         lambda m: A.interp_abl(*a6, mode=m, tiny=True),
         lambda m: A.interp_abl_plain(*a6, mode=m, tiny=True))
     out = A.interp_abl(*a6, mode="full")
+    turns = abl_turns(
+        "K6", lambda: A.interp_abl(*a6, mode="full"),
+        other and (lambda: raw_interp(other, *a6)))
     lib_ms, lib_err = grid_sample_k6(i6)
-    ms = timed(lambda: A.interp_abl(*a6, mode="full"))
-    log(f"K6 full: kernel {ms:.4f} ms; F.grid_sample {lib_ms:.4f} ms, "
-        f"max|diff| from the kernel {lib_err:.3e}")
+    log(f"K6 full: F.grid_sample {lib_ms:.4f} ms, max|diff| from the "
+        f"kernel {lib_err:.3e}")
     res["interp_abl"] = dict(
-        ms=ms, max_abs_err=max(*errs.values(), *errs_tiny.values()),
+        **turns, max_abs_err=max(*errs.values(), *errs_tiny.values()),
         plain_ms=timed(lambda: A.interp_abl_plain(*a6, mode="full")),
         library_ms=lib_ms,
         **bound("interp_abl", i6["rel"][0].numel(),
@@ -755,7 +784,8 @@ def phase_ablation(dev, other=None) -> dict:
     log(f"ablation sweeps: {time.time() - t0:.2f} s, kernel launches "
         f"{launches}")
     # dma_only's loads must survive the compiler: it keeps a real share
-    # of full's time (measured 56% for K5, 98% for K6 on an H100)
+    # of full's time (measured 56% for K5, ~90% for K6 on an H100 80GB
+    # HBM3 at 700 W)
     for name, dma, full in (("K5", s5["random", "dma_only"],
                              s5["random", "full"]),
                             ("K6", s6["dma_only"], s6["full"])):
@@ -988,8 +1018,8 @@ def protocol_kernel_time(label: str, name: str, calls: list, other=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="another checkout whose K1-K5 and K7 are "
-                         "timed beside this tree's")
+                    help="another checkout whose K1-K7 are timed "
+                         "beside this tree's")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "cmvs_pmvs_tpu_torch")):
         print("chip_smoke: the port (cmvs_pmvs_tpu_torch/) is not beside "

@@ -38,8 +38,21 @@
 // one 5-value butterfly and lane v its INCC at the end; K7 sums its 9
 // values per view with a reduce-scatter (12 shuffles where a butterfly
 // takes 45; the butterfly's bits) that leaves each sum in one pair of
-// lanes, which writes it. K6: one warp per (pair, probe) window, samples
-// across lanes, taps read in place byte by byte (not redesigned yet).
+// lanes, which writes it.
+//
+// K6 has no moments and no walk over views: each sample stands alone, so
+// it is laid out as a stream. A thread takes kK6Run = 4 consecutive
+// samples of the flat [B, T, fan, S2] order, reads their positions as one
+// float4 a plane and writes each output row as one float4 (one float at a
+// time for a tail, an unaligned plane or the tiny output); no lane idles
+// on a 49-sample window. A sample's pair, window and patch come from
+// multiply-highs by fixed-point reciprocals the host computes (`udiv`; no
+// 64-bit division), and a pair's tile code is read once for the run of
+// samples that share it. Its taps are read as K5's (tile_taps: a row's
+// pixel and its right neighbour in one or two aligned 8-byte words, the
+// tile rule as a weight mask); no_x and no_fold read their 32 and 8
+// columns of two rows as 24-byte chunks of aligned words (the atlas's
+// first and last rows byte by byte, under the same rule).
 //
 // A cut mode does not do the work it cuts, and does the rest as the full
 // mode does it: K5 no_moments interpolates every sample of every view,
@@ -60,11 +73,17 @@
 // per patch, a warp per view, K5's tile staged byte by byte in shared
 // memory, K7's view-0 window exchanged through it behind a barrier) took
 // 2.1x (K5) and 1.16x (K7) as long. K6, its bytes: 8 B of positions read
-// and 12 B of RGB written per sample against ~37 float operations.
+// and 12 B of RGB written per sample against ~37 float operations; its
+// first layout (a warp per window, 12 one-byte tap loads a sample, a
+// second pass of 17 samples over 32 lanes, 64-bit divisions) ran at 38%
+// of that bound and this one at 58% (H100 80GB HBM3, 700 W): the
+// positions and rows stream at ~2.8 TB/s, and the random tap loads add
+// ~30% that does not hide behind the stream.
 //
 // Registers (nvcc -Xptxas -v, CUDA 12.8, sm_90a), no spills: K5 full 54 /
 // 80 / 80 / 97 for 1-4 samples a lane and 101 recomputing, dma_only 44 /
-// 64 for 1 / 2; K7 full 47 / 53 for 1 / 2 samples a lane.
+// 64 for 1 / 2; K7 full 47 / 53 for 1 / 2 samples a lane; K6 full 47,
+// no_x 63, no_mm 25, wy_only 26, no_fold 64, dma_only 40.
 
 #include "common.cuh"
 
@@ -72,9 +91,7 @@ namespace {
 
 using cmvs::FanMeta;
 using cmvs::FanView;
-using cmvs::Tile;
 using cmvs::hat;
-using cmvs::tile_rgb;
 
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kK5MaxWsize = 63;  // the largest window K5 takes
@@ -380,94 +397,274 @@ __global__ void __launch_bounds__(32 * cmvs::kFanWarps)
 
 enum { kK6Full, kK6NoX, kK6NoMm, kK6WyOnly, kK6NoFold, kK6DmaOnly };
 
-// out[r, window, s] (tiny: out[r, group, 0..1, s], only the first two
-// windows of every group of ppv patches): full, bilinear RGB; no_x, the sum
-// over the 32 tile columns of the y-interpolated RGB; no_mm, the sum over
-// tile columns i of wy[i] wx[i] in every row; wy_only, row 0 the sum of the
-// in-tile wy[i], rows 1-2 0; no_fold, rows x = 0..7 the x-weighted
-// y-interpolation of column x's R; dma_only, 0 after the taps are read.
-template <int MODE>
-__global__ void interp_abl_kernel(const uint8_t* __restrict__ atlas, int N,
-                                  int H, int WA,
-                                  const int* __restrict__ tilemap,
-                                  const float* __restrict__ rel,
-                                  float* __restrict__ out, long long windows,
-                                  int T, int fan, int s2, int ppv, int tiny,
-                                  int sink) {
-  constexpr int R = MODE == kK6NoFold ? 8 : 3;   // output rows
-  const long long w =
-      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
-      (threadIdx.x >> 5);
-  if (w >= windows) return;
-  const int lane = threadIdx.x & 31;
-  const long long pair = w / fan;
-  const TileCode tc = decode_tile(tilemap[pair], N);
-  const Tile tl = cmvs::atlas_tile(atlas, tc.n, H, WA, tc.ox, tc.oy);
-  long long dst = w, row_len = windows * s2;
-  bool keep = true;
-  if (tiny) {
-    const long long b = pair / T, k = w % (static_cast<long long>(T) * fan);
-    keep = b % ppv == 0 && k < 2;
-    dst = b / ppv * 2 + (k & 1);
-    row_len = windows / (static_cast<long long>(T) * fan) / ppv * 2 * s2;
-  }
-  for (int s = lane; s < s2; s += 32) {
-    const float rx = rel[w * s2 + s];
-    const float ry = rel[windows * s2 + w * s2 + s];
-    const float fx = floorf(rx), fy = floorf(ry);
-    const int lx = static_cast<int>(fx), ly = static_cast<int>(fy);
-    const float wy0 = hat(ry - fy), wy1 = hat(ry - (fy + 1.f));
-    float val[R];
-    if constexpr (MODE == kK6Full) {
-      cmvs::tile_bilinear(tl, rx, ry, val);
-    } else if constexpr (MODE == kK6NoX) {
-      float acc[3] = {0.f, 0.f, 0.f};
-      for (int x = 0; x < cmvs::kTile; ++x) {
-        float p0[3], p1[3];
-        tile_rgb(tl, x, ly, p0);
-        tile_rgb(tl, x, ly + 1, p1);
+constexpr int kK6Threads = 64;  // threads a block
+constexpr int kK6Run = 4;       // consecutive samples a thread: one float4
+
+// n / d for 0 <= n < 2^31, from the host's fixed-point reciprocal of d
+// (ops/ablate.div_magic): l = ceil(log2 d) and m = ceil(2^(31 + l) / d) <
+// 2^32, so that 2 n m / 2^(32 + l) = n / d + e with 0 <= e < 2^-l <= 1 / d,
+// which leaves the floor of n / d unchanged. A multiply-high and a shift.
+struct Div {
+  unsigned m;
+  int l;
+};
+
+__device__ __forceinline__ int udiv(int n, Div d) {
+  return static_cast<int>(__umulhi(static_cast<unsigned>(n) << 1, d.m) >>
+                          d.l);
+}
+
+struct K6Args {
+  const uint8_t* atlas;
+  int N, H, WA;
+  const int* tilemap;  // [B * T]
+  const float* rel;    // [2, total]: x plane, then y plane
+  float* out;          // [R, total] (tiny: [R, tiny_len])
+  int total, s2;       // samples (windows * s2), samples a window
+  Div pair, window, patch, group;  // division by s2 fan, s2, T fan, ppv
+  int tfan, ppv, tiny_len;
+  int vec;   // rel planes and output rows 16-byte aligned: float4 access
+  int tiny, sink;
+};
+
+// The tile of tile code `code` as the fan body's FanView (fan_view's row
+// rule: the rows whose tap words lie inside the atlas), without shuffles.
+__device__ __forceinline__ FanView k6_view(const K6Args& a, int code) {
+  const TileCode tc = decode_tile(code, a.N);
+  FanView fv;
+  fv.img = a.atlas + static_cast<long long>(tc.n) * a.H * a.WA * 3;
+  fv.ok = true;
+  fv.row_lo = tc.n == 0 ? 1 : 0;
+  fv.row_hi = a.WA < 5 ? -1 : (tc.n == a.N - 1 ? a.H - 2 : a.H - 1);
+  fv.ox = tc.ox;
+  fv.oy = tc.oy;
+  fv.tw = cmvs::clampi(a.WA - tc.ox, 0, cmvs::kTile);
+  fv.th = cmvs::clampi(a.H - tc.oy, 0, cmvs::kTile);
+  return fv;
+}
+
+// Bytes [p, p + 24) - eight RGB pixels of an atlas row - as six words,
+// byte k in bits 8 (k % 4) of word k / 4. wide: the aligned 8-byte words
+// over them lie inside the atlas; three are read (four where p is not
+// aligned) and the bytes cut out with funnel shifts. Else byte by byte,
+// the pixels from `avail` on (past the row's end) as 0.
+__device__ __forceinline__ void chunk_words(const uint8_t* p, int avail,
+                                            bool wide, unsigned (&b)[6]) {
+  if (wide) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+    const uint2* w =
+        reinterpret_cast<const uint2*>(addr & ~static_cast<uintptr_t>(7));
+    const unsigned off = static_cast<unsigned>(addr & 7);
+    unsigned u[8];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) acc[c] += wy0 * p0[c] + wy1 * p1[c];
-      }
-#pragma unroll
-      for (int c = 0; c < 3; ++c) val[c] = acc[c];
-    } else if constexpr (MODE == kK6NoMm || MODE == kK6WyOnly) {
-      const bool in0 = ly >= 0 && ly < cmvs::kTile;
-      const bool in1 = ly + 1 >= 0 && ly + 1 < cmvs::kTile;
-      float acc = 0.f;
-      if constexpr (MODE == kK6NoMm) {
-        if (in0) acc += wy0 * hat(rx - fy);
-        if (in1) acc += wy1 * hat(rx - (fy + 1.f));
-        val[0] = val[1] = val[2] = acc;
-      } else {
-        if (in0) acc += wy0;
-        if (in1) acc += wy1;
-        val[0] = acc;
-        val[1] = val[2] = 0.f;
-      }
-    } else if constexpr (MODE == kK6NoFold) {
-#pragma unroll
-      for (int x = 0; x < R; ++x) {
-        float p0[3], p1[3];
-        tile_rgb(tl, x, ly, p0);
-        tile_rgb(tl, x, ly + 1, p1);
-        val[x] = (wy0 * p0[0] + wy1 * p1[0]) * hat(rx - static_cast<float>(x));
-      }
-    } else {  // dma_only: the four taps' bytes, nothing computed
-      float p00[3], p01[3], p10[3], p11[3];
-      tile_rgb(tl, lx, ly, p00);
-      tile_rgb(tl, lx, ly + 1, p01);
-      tile_rgb(tl, lx + 1, ly, p10);
-      tile_rgb(tl, lx + 1, ly + 1, p11);
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) acc += p00[c] + p01[c] + p10[c] + p11[c];
-#pragma unroll
-      for (int r = 0; r < R; ++r) val[r] = sink ? acc : 0.f;
+    for (int i = 0; i < 3; ++i) {
+      const uint2 v = __ldg(w + i);
+      u[2 * i] = v.x;
+      u[2 * i + 1] = v.y;
     }
-    if (keep || sink) {
+    const uint2 v3 = off > 0 ? __ldg(w + 3) : make_uint2(0u, 0u);
+    u[6] = v3.x;
+    u[7] = v3.y;
+    unsigned s[7];
 #pragma unroll
-      for (int r = 0; r < R; ++r) out[r * row_len + dst * s2 + s] = val[r];
+    for (int k = 0; k < 7; ++k) s[k] = off < 4 ? u[k] : u[k + 1];
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      b[k] = __funnelshift_r(s[k], s[k + 1], (off & 3) * 8);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) b[k] = 0u;
+#pragma unroll
+    for (int k = 0; k < 24; ++k)
+      if (k / 3 < avail)
+        b[k / 4] |= static_cast<unsigned>(p[k]) << (8 * (k % 4));
+  }
+}
+
+// Channel c of pixel x (0..7) of chunk_words' words.
+__device__ __forceinline__ float chunk_channel(const unsigned (&b)[6], int x,
+                                               int c) {
+  return cmvs::byte_float(b[(3 * x + c) / 4], (3 * x + c) % 4);
+}
+
+// no_x (kChunks 4: the sum over the 32 tile columns of the y-interpolated
+// RGB) and no_fold (kChunks 1: row x = 0..7, column x's y-interpolated R
+// times its x weight) at (rx, ry) of tile fv. Rows ly and ly + 1 are read
+// from the tile's first column on, eight pixels a chunk, as words where the
+// row is one fan_view allows and the atlas is wide enough that the words
+// end inside the next row (WA >= 8 kChunks + 2); the tile rule masks the
+// row weights and zeroes the columns past the tile's readable width, which
+// is what the plain version's zero taps give, bit for bit.
+template <int kChunks, int R>
+__device__ __forceinline__ void k6_columns(const FanView& fv, int H, int WA,
+                                           float rx, float ry,
+                                           float (&val)[R]) {
+  ry = fminf(fmaxf(ry, -cmvs::kFanPosMax), cmvs::kFanPosMax);
+  int ly;
+  const float fy = cmvs::floor_int(ry, ly);
+  const unsigned th = fv.th;
+  const float wy0 = static_cast<unsigned>(ly) < th ? hat(ry - fy) : 0.f;
+  const float wy1 =
+      static_cast<unsigned>(ly + 1) < th ? hat(ry - (fy + 1.f)) : 0.f;
+  const int xa = cmvs::clampi(fv.ox, 0, WA - 1);
+  const int r0 = cmvs::clampi(fv.oy + ly, 0, H - 1);
+  const int r1 = cmvs::clampi(fv.oy + ly + 1, 0, H - 1);
+  const bool fit = WA >= 8 * kChunks + 2;
+  const bool wide0 = fit && r0 >= fv.row_lo && r0 <= fv.row_hi;
+  const bool wide1 = fit && r1 >= fv.row_lo && r1 <= fv.row_hi;
+  const uint8_t* p0 = fv.img + (r0 * WA + xa) * 3;
+  const uint8_t* p1 = fv.img + (r1 * WA + xa) * 3;
+  float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    unsigned b0[6], b1[6];
+    chunk_words(p0 + 24 * c, WA - xa - 8 * c, wide0, b0);
+    chunk_words(p1 + 24 * c, WA - xa - 8 * c, wide1, b1);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const bool in = 8 * c + x < fv.tw;
+      if constexpr (kChunks == 1) {
+        const float q0 = in ? chunk_channel(b0, x, 0) : 0.f;
+        const float q1 = in ? chunk_channel(b1, x, 0) : 0.f;
+        val[x] = (wy0 * q0 + wy1 * q1) * hat(rx - static_cast<float>(x));
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float q0 = in ? chunk_channel(b0, x, ch) : 0.f;
+          const float q1 = in ? chunk_channel(b1, x, ch) : 0.f;
+          acc[ch] += wy0 * q0 + wy1 * q1;
+        }
+      }
+    }
+  }
+  if constexpr (kChunks != 1) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) val[ch] = acc[ch];
+  }
+}
+
+// One sample of mode MODE at (rx, ry) of tile fv (interp_abl_kernel's
+// output rows); dma_only adds its tap words into `words`.
+template <int MODE, int R>
+__device__ __forceinline__ void k6_sample(const FanView& fv, int H, int WA,
+                                          float rx, float ry, float (&val)[R],
+                                          unsigned& words) {
+  if constexpr (MODE == kK6Full) {
+    tile_sample<kBilinear>(fv, H, WA, rx, ry, val, words);
+  } else if constexpr (MODE == kK6DmaOnly) {
+    tile_sample<kWords>(fv, H, WA, rx, ry, val, words);
+  } else if constexpr (MODE == kK6NoX) {
+    k6_columns<4>(fv, H, WA, rx, ry, val);
+  } else if constexpr (MODE == kK6NoFold) {
+    k6_columns<1>(fv, H, WA, rx, ry, val);
+  } else {  // no_mm, wy_only: the weights alone, no taps
+    ry = fminf(fmaxf(ry, -cmvs::kFanPosMax), cmvs::kFanPosMax);
+    int ly;
+    const float fy = cmvs::floor_int(ry, ly);
+    const float wy0 = hat(ry - fy), wy1 = hat(ry - (fy + 1.f));
+    const bool in0 = static_cast<unsigned>(ly) < cmvs::kTile;
+    const bool in1 = static_cast<unsigned>(ly + 1) < cmvs::kTile;
+    float acc = 0.f;
+    if constexpr (MODE == kK6NoMm) {
+      if (in0) acc += wy0 * hat(rx - fy);
+      if (in1) acc += wy1 * hat(rx - (fy + 1.f));
+      val[0] = val[1] = val[2] = acc;
+    } else {
+      if (in0) acc += wy0;
+      if (in1) acc += wy1;
+      val[0] = acc;
+      val[1] = val[2] = 0.f;
+    }
+  }
+}
+
+// out[r, i] for the flat samples i of [B, T, fan, S2] (tiny: out[r, group,
+// window, s], only the first min(2, T fan) windows of every group of ppv
+// patches):
+// full, bilinear RGB; no_x, the sum over the 32 tile columns of the
+// y-interpolated RGB; no_mm, the sum over tile columns i of wy[i] wx[i] in
+// every row; wy_only, row 0 the sum of the in-tile wy[i], rows 1-2 0;
+// no_fold, rows x = 0..7 the x-weighted y-interpolation of column x's R;
+// dma_only, 0 after the taps are read. Each thread takes kK6Run
+// consecutive samples: their positions as one float4 a plane and their
+// rows as one float4 each where `vec`, else (a tail, an unaligned plane,
+// the tiny output) one float at a time. A sample's pair comes from one
+// udiv, and the pair's tile code is read once for the run of samples that
+// share it.
+template <int MODE>
+__global__ void __launch_bounds__(kK6Threads)
+    interp_abl_kernel(const K6Args a) {
+  constexpr int R = MODE == kK6NoFold ? 8 : 3;  // output rows
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kK6Threads + threadIdx.x) *
+      kK6Run;
+  if (first >= a.total) return;
+  const int i0 = static_cast<int>(first);
+  float rx[kK6Run], ry[kK6Run];
+  if (a.vec) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(a.rel + i0));
+    const float4 y =
+        __ldg(reinterpret_cast<const float4*>(a.rel + a.total + i0));
+    rx[0] = x.x, rx[1] = x.y, rx[2] = x.z, rx[3] = x.w;
+    ry[0] = y.x, ry[1] = y.y, ry[2] = y.z, ry[3] = y.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kK6Run; ++j) {
+      const bool in = i0 + j < a.total;
+      rx[j] = in ? __ldg(a.rel + i0 + j) : 0.f;
+      ry[j] = in ? __ldg(a.rel + a.total + i0 + j) : 0.f;
+    }
+  }
+  float val[kK6Run][R];
+  unsigned words = 0;  // dma_only's loaded words (sink)
+  FanView fv;
+  int pair = -1;
+#pragma unroll
+  for (int j = 0; j < kK6Run; ++j) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) val[j][r] = 0.f;
+    if (i0 + j >= a.total) continue;
+    const int p = udiv(i0 + j, a.pair);
+    if (p != pair) {
+      pair = p;
+      fv = k6_view(a, __ldg(a.tilemap + p));
+    }
+    k6_sample<MODE>(fv, a.H, a.WA, rx[j], ry[j], val[j], words);
+  }
+  if constexpr (MODE == kK6DmaOnly) {
+#pragma unroll
+    for (int j = 0; j < kK6Run; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        val[j][r] = a.sink ? static_cast<float>(words) : 0.f;
+  }
+  if (!a.tiny) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float* o = a.out + static_cast<long long>(r) * a.total + i0;
+      if (a.vec) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(val[0][r], val[1][r], val[2][r], val[3][r]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kK6Run; ++j)
+          if (i0 + j < a.total) o[j] = val[j][r];
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kK6Run; ++j) {
+    const int i = i0 + j;
+    if (i >= a.total) continue;
+    const int w = udiv(i, a.window), s = i - w * a.s2;
+    const int b = udiv(w, a.patch), k = w - b * a.tfan;
+    const int g = udiv(b, a.group);
+    if ((b == g * a.ppv && k < 2) || a.sink) {
+      const int dst = (g * min(a.tfan, 2) + (k & 1)) * a.s2 + s;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        a.out[static_cast<long long>(r) * a.tiny_len + dst] = val[j][r];
     }
   }
 }
@@ -624,9 +821,8 @@ __global__ void __launch_bounds__(32 * cmvs::kFanWarps)
 
 }  // namespace
 
-// Launch `kernel` with one warp per (row, probe) of B rows, kFanWarps
-// warps a block: K5 and K7 a warp per (patch, probe), K6 (B = patches *
-// views) per window.
+// Launch `kernel` with one warp per (patch, probe) of B patches, kFanWarps
+// warps a block (K5 and K7).
 template <typename K, typename... Args>
 static int launch_warps(K kernel, int B, int fan, void* stream,
                         Args... args) {
@@ -684,12 +880,23 @@ extern "C" int cmvs_fan_abl(const void* atlas, int N, int H, int WA,
                       /*sink=*/0);
 }
 
+// K6 on `stream`: one thread a run of kK6Run flat samples, the divisions'
+// reciprocals and the alignment choice (`vec`) from the host
+// (ops/ablate.interp_abl). Returns the CUDA error code (invalid value for a
+// mode outside the enum, total outside 1..2^31 - 1 - kK6Run, s2 < 1 or an
+// atlas plane of 2 GB or more).
 extern "C" int cmvs_interp_abl(const void* atlas, int N, int H, int WA,
                                const void* tilemap, const void* rel,
-                               void* out, int B, int T, int fan, int s2,
-                               int ppv, int tiny, int mode, void* stream) {
-  void (*kernel)(const uint8_t*, int, int, int, const int*, const float*,
-                 float*, long long, int, int, int, int, int, int);
+                               void* out, int total, int s2, int tfan,
+                               int ppv, unsigned pair_m, int pair_l,
+                               unsigned window_m, int window_l,
+                               unsigned patch_m, int patch_l,
+                               unsigned group_m, int group_l, int tiny_len,
+                               int vec, int tiny, int mode, void* stream) {
+  if (total < 1 || total > 0x7fffffff - kK6Run || s2 < 1 ||
+      3LL * H * WA >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(const K6Args);
   switch (mode) {
     case kK6Full: kernel = interp_abl_kernel<kK6Full>; break;
     case kK6NoX: kernel = interp_abl_kernel<kK6NoX>; break;
@@ -699,13 +906,18 @@ extern "C" int cmvs_interp_abl(const void* atlas, int N, int H, int WA,
     case kK6DmaOnly: kernel = interp_abl_kernel<kK6DmaOnly>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_warps(kernel, B * T, fan, stream,
-                      static_cast<const uint8_t*>(atlas), N, H, WA,
-                      static_cast<const int*>(tilemap),
-                      static_cast<const float*>(rel),
-                      static_cast<float*>(out),
-                      static_cast<long long>(B) * T * fan, T, fan, s2, ppv,
-                      tiny, /*sink=*/0);
+  const K6Args a = {static_cast<const uint8_t*>(atlas), N, H, WA,
+                    static_cast<const int*>(tilemap),
+                    static_cast<const float*>(rel), static_cast<float*>(out),
+                    total, s2,
+                    {pair_m, pair_l}, {window_m, window_l},
+                    {patch_m, patch_l}, {group_m, group_l},
+                    tfan, ppv, tiny_len, vec, tiny, /*sink=*/0};
+  constexpr int kPerBlock = kK6Threads * kK6Run;
+  const unsigned blocks = static_cast<unsigned>((total + kPerBlock - 1) /
+                                                kPerBlock);
+  kernel<<<blocks, kK6Threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 using K7Kernel = void (*)(const uint8_t*, int, int, int, const int*,

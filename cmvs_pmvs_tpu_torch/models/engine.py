@@ -177,12 +177,15 @@ class PMVSEngine:
             didx >= 0, inv[didx.clamp(min=0).long()], didx))
 
     def run(self, expand_iters: int = 3, max_waves: int = 12,
-            refine_iters: int = 8, start_iter: int = 0) -> PatchCloud:
+            refine_iters: int = 8, start_iter: int = 0,
+            filters: bool = True) -> PatchCloud:
         """Detect, seed, then the expand/filter rounds. `start_iter > 0`
-        resumes from checkpointed state (load_checkpoint)."""
+        resumes from checkpointed state (load_checkpoint); `filters=False`
+        skips the filter stage of every round (the oracle comparison
+        holds the raw seed + expand cloud to the sequential walk)."""
         if start_iter > 0:
             return self._run_iters(start_iter, expand_iters, max_waves,
-                                   refine_iters)
+                                   refine_iters, filters=filters)
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
         tr = self.tracer
         t0 = time.time()
@@ -222,11 +225,12 @@ class PMVSEngine:
         self.cloud, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
                                                    self.cloud, self.grid)
         return self._run_iters(0, expand_iters, max_waves, refine_iters,
-                               t0=t0)
+                               t0=t0, filters=filters)
 
     def _run_iters(self, start_iter: int, expand_iters: int,
                    max_waves: int, refine_iters: int,
-                   t0: float | None = None) -> PatchCloud:
+                   t0: float | None = None,
+                   filters: bool = True) -> PatchCloud:
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
         tr = self.tracer
         t0 = time.time() if t0 is None else t0
@@ -274,6 +278,9 @@ class PMVSEngine:
                     break
             self.log(f"expand it{it}: +{total_new} -> "
                      f"{int(self.cloud.count())} ({time.time() - t2:.1f}s)")
+            if not filters:
+                self.thr = self.thr.relaxed()
+                continue
             t3 = time.time()
             with tr.span("filter", block=True):
                 self.cloud, self.grid, fstats = run_filters(

@@ -26,7 +26,10 @@ kernel does not take raises (`check_fan_abl_shape`,
 `check_moments_abl_shape`). K5 and K7 run on the body of the fan
 kernels K1 and K3 (one warp per (patch, probe) walking the views, the
 window in registers, taps read in place as 8-byte words), so their mode
-sweeps split that body's time into stages.
+sweeps split that body's time into stages. K6, whose samples stand
+alone, streams them: a thread per run of four flat samples, positions and
+rows as float4, its divisions by multiply-highs with the reciprocals of
+`div_magic`, taps read as K5's.
 """
 from __future__ import annotations
 
@@ -45,6 +48,9 @@ MOMENTS_ABL_MODES = ("full", "no_moments", "no_expand", "body_only")
 # the TPU harness's: the plain version holds to it too).
 FAN_ABL_MAX_WSIZE = 63
 MOMENTS_ABL_MAX_S2 = 64
+# The most samples K6 takes (csrc/ablate.cu: a thread's run of kK6Run = 4
+# sample indices stays below 2**31).
+INTERP_ABL_MAX_SAMPLES = 2 ** 31 - 5
 
 
 def check_fan_abl_shape(name: str, t: int, wsize: int):
@@ -87,7 +93,7 @@ def _hat(d):
 def tile_bilinear(atlas_u8, tile, rx, ry):
     """Bilinear RGB [..., 3] at tile-relative positions rx/ry [...] of the
     tiles `tile` = (n, ox, oy) (broadcast to rx): hat weights, y first,
-    then x (csrc/common.cuh `tile_bilinear`)."""
+    then x (csrc/ablate.cu `tile_sample`)."""
     fx = torch.floor(rx)
     fy = torch.floor(ry)
     lx = fx.to(torch.int64)
@@ -233,8 +239,8 @@ def interp_abl_plain(atlas_u8, tilemap, rel, *, mode: str, ppv: int = 4,
                 x's R;
       dma_only  0.
     tiny: only the first two windows, in (view, probe) order, of every
-    group of ppv patches -> [R, B // ppv, 2, S2] (the TPU harness's
-    ABL_TINY_OUT, its first 128 lanes of every grid step)."""
+    group of ppv patches -> [R, B // ppv, min(2, T fan), S2] (the TPU
+    harness's ABL_TINY_OUT, its first 128 lanes of every grid step)."""
     _mode_index(INTERP_ABL_MODES, mode)
     _, b, t, fan, s2 = rel.shape
     if tiny and b % ppv:
@@ -280,10 +286,49 @@ def interp_abl_plain(atlas_u8, tilemap, rel, *, mode: str, ppv: int = 4,
     return out
 
 
+def div_magic(d: int) -> tuple[int, int]:
+    """The fixed-point reciprocal (m, l) by which K6 divides a sample
+    index 0 <= n < 2**31 by d (csrc/ablate.cu `udiv`): n // d ==
+    ((2 n m) >> 32) >> l, with l = ceil(log2 d) and m = ceil(2**(31 + l)
+    / d) < 2**32."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"div_magic: divisor {d} outside 1..2**31 - 1")
+    l = (d - 1).bit_length()
+    return -(-(1 << (31 + l)) // d), l
+
+
+def interp_abl_vector(rel, out, tiny: bool) -> bool:
+    """Whether K6 reads its positions and writes its rows as float4: both
+    planes of rel (and the rows of a full-size output) start on 16-byte
+    boundaries, so the flat sample count must be a multiple of 4."""
+    total = rel[0].numel()
+    return (total % 4 == 0 and rel.data_ptr() % 16 == 0
+            and (tiny or out.data_ptr() % 16 == 0))
+
+
+def interp_abl_args(atlas_u8, tilemap, rel, out, mode_id: int, ppv: int,
+                    tiny: bool) -> tuple:
+    """The arguments of csrc/ablate.cu `cmvs_interp_abl` but the stream:
+    pointers and shapes, the fixed-point reciprocals of the divisions by
+    S2 fan (a sample's pair), S2 (its window), T fan (a window's patch) and
+    ppv (a patch's group; tiny only), the tiny output's row length and
+    the float4 choice."""
+    n, h, wa, _ = atlas_u8.shape
+    _, b, t, fan, s2 = rel.shape
+    divs = (div_magic(s2 * fan), div_magic(s2), div_magic(t * fan),
+            div_magic(ppv) if tiny else (0, 0))
+    return (atlas_u8.data_ptr(), n, h, wa, tilemap.data_ptr(),
+            rel.data_ptr(), out.data_ptr(), b * t * fan * s2, s2, t * fan,
+            ppv, *(v for d in divs for v in d),
+            out[0].numel() if tiny else 0,
+            int(interp_abl_vector(rel, out, tiny)), int(tiny), mode_id)
+
+
 def interp_abl(atlas_u8, tilemap, rel, *, mode: str, ppv: int = 4,
                tiny: bool = False):
     """K6 on CUDA tensors, `interp_abl_plain` on CPU tensors; shapes and
-    modes as there."""
+    modes as there. The kernel takes up to INTERP_ABL_MAX_SAMPLES
+    samples."""
     mode_id = _mode_index(INTERP_ABL_MODES, mode)
     if not rel.is_cuda:
         return interp_abl_plain(atlas_u8, tilemap, rel, mode=mode, ppv=ppv,
@@ -297,14 +342,17 @@ def interp_abl(atlas_u8, tilemap, rel, *, mode: str, ppv: int = 4,
     kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
     kernels.require(tilemap, "tilemap", torch.int32, (b, t), dev)
     kernels.require(rel, "rel", torch.float32, (2, b, t, fan, s2), dev)
+    if rel[0].numel() > INTERP_ABL_MAX_SAMPLES:
+        raise ValueError(f"interp_abl: {rel[0].numel()} samples, the "
+                         f"kernel takes at most {INTERP_ABL_MAX_SAMPLES}")
     rows = interp_abl_rows(mode)
-    shape = (rows, b // ppv, 2, s2) if tiny else (rows, b, t, fan, s2)
+    shape = ((rows, b // ppv, min(2, t * fan), s2) if tiny
+             else (rows, b, t, fan, s2))
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     kernels.check(kernels.lib().cmvs_interp_abl(
-        atlas_u8.data_ptr(), n, h, wa, tilemap.data_ptr(), rel.data_ptr(),
-        out.data_ptr(), b, t, fan, s2, ppv, int(tiny), mode_id,
+        *interp_abl_args(atlas_u8, tilemap, rel, out, mode_id, ppv, tiny),
         kernels.stream_handle()), "interp_abl")
     interp_abl.launches += 1
     return out

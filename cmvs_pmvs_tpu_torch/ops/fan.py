@@ -168,7 +168,7 @@ def robust_incc_vs_ref(tex, ok):
 def tile_px(atlas_u8, n, ox, oy, tx, ty):
     """RGB [..., 3] f32 of pixel (tx, ty) of the TILE_PX tile at atlas
     pixel (ox, oy) of view n (all int64, broadcast): 0 outside the tile
-    or past the atlas edge (csrc/common.cuh `tile_rgb`)."""
+    or past the atlas edge (the v1 tile rule of csrc/common.cuh)."""
     h, wa = atlas_u8.shape[1], atlas_u8.shape[2]
     y = oy + ty
     x = ox + tx

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "cmvs_windows": [_P, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong,
                      _I, _I, _P],
     "cmvs_fan_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "cmvs_interp_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
+    "cmvs_interp_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                        *[ctypes.c_uint, _I] * 4, _I, _I, _I, _I, _P],
     "cmvs_moments_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _P],
 }

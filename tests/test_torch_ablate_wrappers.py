@@ -4,9 +4,10 @@ The mode tuples of ops/ablate follow the mode enums of csrc/ablate.cu
 (a wrapper passes a mode's index to the kernel), the view and window
 limits of K5 and K7 match the kernel source, the shape checks accept and
 reject at those limits, a CPU call runs the plain version without
-counting a launch, the ctypes bindings of the K5/K7 entry points (the
-library's and the occupancy sweep's) match the source, and the occupancy
-sweep needs CUDA.
+counting a launch, the ctypes bindings of the K5-K7 entry points (the
+library's and the occupancy sweep's) match the source, the occupancy
+sweep needs CUDA, and K6's host arithmetic (the fixed-point reciprocals
+of its divisions, its choice of float4 access) is exact.
 """
 import ctypes
 import re
@@ -42,7 +43,8 @@ def test_mode_tuples_follow_kernel_enums(kernel, modes):
 
 @pytest.mark.parametrize("name,value", [
     ("kK5MaxWsize", A.FAN_ABL_MAX_WSIZE),
-    ("kK7MaxS2", A.MOMENTS_ABL_MAX_S2)])
+    ("kK7MaxS2", A.MOMENTS_ABL_MAX_S2),
+    ("kK6Run", 2 ** 31 - 1 - A.INTERP_ABL_MAX_SAMPLES)])
 def test_limits_match_kernel_source(name, value):
     assert int(re.search(name + r" = (\d+);", SRC).group(1)) == value
 
@@ -73,18 +75,21 @@ def test_moments_abl_shape_check_accepts(t, wsize):
 
 @pytest.mark.parametrize("source,name,signature", [
     ("ablate.cu", "cmvs_fan_abl", K._SIGNATURES["cmvs_fan_abl"]),
+    ("ablate.cu", "cmvs_interp_abl", K._SIGNATURES["cmvs_interp_abl"]),
     ("ablate.cu", "cmvs_moments_abl", K._SIGNATURES["cmvs_moments_abl"]),
     (OCC.SOURCE, "cmvs_occ_fan_abl", OCC.SIGNATURES["cmvs_occ_fan_abl"]),
     (OCC.SOURCE, "cmvs_occ_moments_abl",
      OCC.SIGNATURES["cmvs_occ_moments_abl"])])
 def test_ctypes_signatures_match_the_source(source, name, signature):
-    """Each C entry point's parameters, pointer or int, are the ones its
-    ctypes binding passes."""
+    """Each C entry point's parameters, pointer, unsigned or int, are the
+    ones its ctypes binding passes."""
     text = (K.CSRC / source).read_text()
     params = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)",
                        text).group(1).split(",")
-    assert ["*" in p for p in params] == [
-        a is not ctypes.c_int for a in signature]
+    assert ["*" if "*" in p else "unsigned" if "unsigned" in p else "int"
+            for p in params] == [
+        "unsigned" if a is ctypes.c_uint else "int" if a is ctypes.c_int
+        else "*" for a in signature]
 
 
 def test_occupancy_driver_requires_cuda(monkeypatch):
@@ -132,3 +137,43 @@ def test_cpu_calls_run_plain_uncounted():
             A.moments_abl(atlas, tilemap, frames, mode=mode, wsize=3),
             A.moments_abl_plain(atlas, tilemap, frames, mode=mode, wsize=3))
     assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 25, 49, 63, 96, 196, 294, 4096,
+                               2 ** 20 + 1, 3 * 2 ** 28, 2 ** 31 - 1])
+def test_div_magic_divides_exactly(d):
+    """((2 n m) >> 32) >> l == n // d for 0 <= n < 2**31, as csrc/ablate.cu
+    `udiv` computes it with 32-bit words: at the quotients' edges, at the
+    largest index and at random indices."""
+    m, l = A.div_magic(d)
+    assert 0 < m < 2 ** 32 and 0 <= l <= 31
+    rng = np.random.default_rng(d)
+    q = rng.integers(0, (2 ** 31 - 1) // d + 1, 2000)
+    n = np.concatenate([q * d, q * d - 1, q * d + d - 1, [0, 2 ** 31 - 1],
+                        rng.integers(0, 2 ** 31, 2000)])
+    n = n[(n >= 0) & (n < 2 ** 31)].astype(np.uint64)
+    hi = ((n << np.uint64(1)) * np.uint64(m)) >> np.uint64(32)
+    assert np.array_equal(hi >> np.uint64(l), n // np.uint64(d))
+
+
+@pytest.mark.parametrize("d", [0, -3, 2 ** 31])
+def test_div_magic_rejects(d):
+    with pytest.raises(ValueError):
+        A.div_magic(d)
+
+
+def test_interp_abl_vector_choice():
+    """float4 access only where both rel planes and the output rows start
+    on 16-byte boundaries: the flat sample count a multiple of 4, rel and
+    (unless the output is tiny) out aligned."""
+    rel = torch.zeros((2, 2, 3, 4, 49))
+    out = torch.zeros((3, 2, 3, 4, 49))
+    assert A.interp_abl_vector(rel, out, tiny=False)
+    odd = torch.zeros((2, 1, 3, 1, 7))          # 21 samples
+    assert not A.interp_abl_vector(odd, torch.zeros((3, 1, 3, 1, 7)),
+                                   tiny=False)
+    shifted = torch.zeros(rel.numel() + 1)[1:].view(rel.shape)
+    assert not A.interp_abl_vector(shifted, out, tiny=False)
+    out_shifted = torch.zeros(out.numel() + 1)[1:].view(out.shape)
+    assert not A.interp_abl_vector(rel, out_shifted, tiny=False)
+    assert A.interp_abl_vector(rel, out_shifted, tiny=True)

@@ -577,6 +577,94 @@ def test_ablation_kernels_at_the_atlas_edges(setup, wsize):
             _check_k7(a, tilemap, frames, wsize)
 
 
+def _k6_case(atlas, b, t, fan, s2, seed, edge=False):
+    """Random K6 arguments on `atlas`: tilemap [b, t] and positions [2, b,
+    t, fan, s2] from -2 to 34 (outside the tile on both sides). edge: the
+    first half of the patches on view 0's first tile row (taps on the
+    atlas's first row), the second half on the last view's last tile with
+    some tiles past the atlas edge (taps on its last rows and columns)."""
+    n, h, wa, _ = atlas.shape
+    ty, tx = F1.tile_counts(h, wa)
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, n, (b, t))
+    tyi = rng.integers(0, ty, (b, t))
+    txi = rng.integers(0, tx, (b, t))
+    if edge:
+        half = b // 2
+        v[:half], tyi[:half] = 0, 0
+        v[half:], tyi[half:], txi[half:] = n - 1, ty - 1, tx - 1
+        txi[half:, 0] = tx + 3
+        tyi[half:, -1] = ty + 2
+    tilemap = ((v << 20) | (tyi << 10) | txi).astype(np.int32)
+    rel = rng.uniform(-2.0, 34.0, (2, b, t, fan, s2))
+    return (torch.tensor(tilemap, device=atlas.device),
+            torch.tensor(rel, dtype=torch.float32, device=atlas.device))
+
+
+def _check_k6(atlas, tilemap, rel, modes=A.INTERP_ABL_MODES, ppv=4):
+    for mode in modes:
+        for tiny in (False, True):
+            got = _launched(A.interp_abl, atlas, tilemap, rel, mode=mode,
+                            ppv=ppv, tiny=tiny)
+            want = A.interp_abl_plain(atlas, tilemap, rel, mode=mode,
+                                      ppv=ppv, tiny=tiny)
+            assert got.shape == want.shape
+            assert float((got - want).abs().max()) <= 1e-4, (mode, tiny)
+
+
+@pytest.mark.parametrize("s2", [25, 49, 63])
+@pytest.mark.parametrize("mode", A.INTERP_ABL_MODES)
+def test_interp_abl_kernel_window_sizes(setup, mode, s2):
+    """K6 at 25, 49 and 63 samples a window (runs of four samples that
+    cross windows and pairs), full-size and tiny outputs."""
+    atlas = setup["pyr"].atlas_u8
+    tilemap, rel = _k6_case(atlas, 8, 6, 4, s2, seed=s2)
+    _check_k6(atlas, tilemap, rel, (mode,))
+
+
+def test_interp_abl_kernel_scalar_paths(setup):
+    """A sample count that is not a multiple of four (105: the last
+    thread's tail; tiny with groups of one patch) and positions one float
+    past a 16-byte boundary (no float4)."""
+    atlas = setup["pyr"].atlas_u8
+    tilemap, rel = _k6_case(atlas, 5, 3, 1, 7, seed=1)
+    assert not A.interp_abl_vector(rel, rel, False)
+    _check_k6(atlas, tilemap, rel, ppv=1)
+    tilemap, rel = _k6_case(atlas, 8, 6, 4, 49, seed=2)
+    buf = torch.zeros(rel.numel() + 1, device=rel.device)
+    shifted = buf[1:].view(rel.shape)
+    shifted.copy_(rel)
+    assert not A.interp_abl_vector(shifted, rel, False)
+    _check_k6(atlas, tilemap, shifted)
+
+
+def test_interp_abl_kernel_one_window_a_patch(setup):
+    """T = fan = 1: the tiny output keeps the one window of each group's
+    first patch, as the plain version does."""
+    atlas = setup["pyr"].atlas_u8
+    tilemap, rel = _k6_case(atlas, 4, 1, 1, 7, seed=3)
+    _check_k6(atlas, tilemap, rel)
+
+
+@pytest.mark.parametrize("s2", [25, 49])
+def test_interp_abl_kernel_at_the_atlas_edges(setup, s2):
+    """Taps on the atlas's first row (view 0) and last rows and columns
+    (the last view), read byte by byte, tiles past the atlas edge, on a
+    random atlas as it is, on a copy starting 5 bytes past an aligned
+    address, and on one too narrow (20 px) for no_x's row words."""
+    rng = np.random.default_rng(s2)
+    dev = setup["dev"]
+    for shape in ((3, 50, 70, 3), (2, 40, 20, 3)):
+        atlas = torch.tensor(rng.integers(0, 256, shape, np.uint8),
+                             device=dev)
+        buf = torch.zeros(atlas.numel() + 5, dtype=torch.uint8, device=dev)
+        shifted = buf[5:].view(atlas.shape)
+        shifted.copy_(atlas)
+        tilemap, rel = _k6_case(atlas, 8, 6, 4, s2, seed=s2, edge=True)
+        for a in (atlas, shifted):
+            _check_k6(a, tilemap, rel)
+
+
 def test_ablation_wrappers_reject_unsupported_shapes(setup):
     atlas = setup["pyr"].atlas_u8
     tilemap, geom, frames = _abl_case(atlas, 4, 6, 7, seed=1)
