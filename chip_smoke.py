@@ -53,6 +53,21 @@ raises on failure (the script then exits non-zero):
    fan 1) timed (with --against, in turns with DIR's); K6 full beside
    F.grid_sample on pre-gathered tiles; then each driver's own timed
    sweep of every mode.
+11. CMVS and the cluster pipeline. (a) CMVS (models/cmvs.py) on the
+   300-camera / 30,000-point ring bundle of tests/test_cmvs_scale.py at
+   maximage 40, twice on the card and once on the CPU: seconds per stage
+   and peak device memory logged; bars >= 2 clusters, each of 1-40
+   images, point coverage > 0.7, the two card runs byte-identical (the
+   written vis.dat, ske.dat, centers-*.ply and the float state); whether
+   the CPU run gives the same bytes is logged (with the first decision
+   that differs). (b) cmvs3 -> genOption -> pmvs3_all -> merge on phase
+   5's scene with SfM points over +-2.5 of the ground: cmvs3 on the
+   card at the largest maximage in 6..3 that gives >= 2 clusters,
+   genOption at level 0 (its option files set useVisData 1, setEdge 0),
+   each cluster through run_clusters with every kernel counter zeroed
+   just before and read just after (K1 and K2 must launch in each);
+   the merged .patch/.ply/.pset counts must equal the sum of the
+   clusters' and the merged cloud must pass phase 5's accuracy bars.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -1015,6 +1030,169 @@ def protocol_kernel_time(label: str, name: str, calls: list, other=None):
     return out
 
 
+def cmvs_coverage(c) -> float:
+    """Share of a clustering's merged points that reach their score
+    threshold inside some cluster (tests/test_cmvs_scale.py's bar)."""
+    import torch
+    vis = torch.as_tensor(c.vis_pad, device=c.dev)
+    member = torch.as_tensor(c._member_matrix(), device=c.dev)
+    rows = torch.arange(len(c.coords), device=c.dev)
+    best = torch.full((len(rows),), -1.0, dtype=torch.float64,
+                      device=c.dev)
+    for cl in range(len(c.timages)):
+        valid = (vis >= 0) & member[vis.clamp(min=0), cl]
+        best = torch.maximum(best, c._score2_rows(rows, valid)[0].double())
+    return float((best.cpu().numpy() >= c.score_thresholds).mean())
+
+
+def cmvs_outputs(c, out_dir: str) -> dict:
+    """The files a clustering writes (vis.dat, ske.dat, centers-*.ply),
+    as bytes by name, plus its float state as bytes."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    c.write(out_dir)
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name), "rb") as f:
+            out[name] = f.read()
+    out["coords"] = c.coords.cpu().numpy().tobytes()
+    out["score_thresholds"] = c.score_thresholds.tobytes()
+    out["links"] = np.array([x for ls in c.links for x in ls]).tobytes()
+    return out
+
+
+def first_difference(a, b) -> str:
+    """Where two clusterings of one bundle first part (in stage order),
+    with the gap in the scores that decided it."""
+    gap = float(np.max(np.abs(a.score_thresholds - b.score_thresholds)))
+    if not np.array_equal(a.removed, b.removed):
+        k = int(np.nonzero(a.removed != b.removed)[0][0])
+        return (f"image {k} removed on one side only; largest threshold "
+                f"gap {gap:.3e}")
+    for k, (x, y) in enumerate(zip(a.timages, b.timages)):
+        if x != y:
+            return (f"cluster {k}: {x} vs {y}; largest threshold gap "
+                    f"{gap:.3e}")
+    return (f"cluster counts {len(a.timages)} vs {len(b.timages)}; "
+            f"largest threshold gap {gap:.3e}")
+
+
+def phase_cmvs_scale() -> dict:
+    """Phase 11a: CMVS at scale on the card (tests/test_cmvs_scale.py's
+    ring bundle, maximage 40), twice, then on the CPU."""
+    import torch
+    from cmvs_pmvs_tpu_torch.convert import cmvs_problem_from_arrays
+    from cmvs_pmvs_tpu_torch.models.cmvs import CmvsClustering
+    from cmvs_pmvs_tpu_torch.utils.synthetic import make_ring_bundle
+    fields = make_ring_bundle(n_cams=300, n_pts=30_000, seed=7)
+    base = os.path.join(ROOT, "build", "chip_smoke_cmvs")
+    runs = []
+    for k, device in enumerate(("cuda", "cuda", "cpu")):
+        prob = cmvs_problem_from_arrays(**fields, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        c = CmvsClustering(prob, maximage=40, log=lambda m: None)
+        t0 = time.time()
+        c.run()
+        total = time.time() - t0
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if device == "cuda" else None)
+        cov = cmvs_coverage(c)
+        runs.append((c, cmvs_outputs(c, os.path.join(base, str(k)))))
+        log(f"cmvs[{device} run {k}] 300 cameras, {len(fields['coords'])} "
+            f"points, maximage 40: {total:.3f} s, stages "
+            f"{ {n: round(v, 3) for n, v in c.seconds.items()} }, "
+            f"peak device memory "
+            + (f"{peak:.3f} GiB" if peak is not None else "n/a (CPU)")
+            + f"; merged points {len(c.coords)}, kept images "
+            f"{int((~c.removed).sum())}, clusters "
+            f"{[len(t) for t in c.timages]}, coverage {cov:.4f}")
+        if device == "cuda":
+            if len(c.timages) < 2:
+                raise AssertionError(f"cmvs: {len(c.timages)} cluster(s)")
+            if not all(0 < len(t) <= 40 for t in c.timages):
+                raise AssertionError(f"cmvs: cluster sizes "
+                                     f"{[len(t) for t in c.timages]}")
+            if not cov > 0.7:
+                raise AssertionError(f"cmvs: coverage {cov} <= 0.7")
+    (a, out_a), (b, out_b), (cpu, out_cpu) = runs
+    diff = [n for n in out_a if out_a[n] != out_b.get(n)]
+    if diff or set(out_a) != set(out_b):
+        raise AssertionError(f"cmvs: two card runs differ in {diff}")
+    same_cpu = out_a == out_cpu
+    log("cmvs: two card runs gave the same bytes; card vs the port's CPU "
+        "run: " + ("the same bytes" if same_cpu else
+                   "differ: " + first_difference(a, cpu)))
+    shutil.rmtree(base, ignore_errors=True)
+    return {"card_equals_cpu": same_cpu}
+
+
+def phase_pipeline(dev) -> dict:
+    """Phase 11b: cmvs3 -> genOption -> pmvs3_all -> merge on the card,
+    on phase 5's occluded scene with SfM points over +-2.5 of the
+    ground (each camera sees a part of them)."""
+    from cmvs_pmvs_tpu_torch.io.patches import read_patch_file, read_pset
+    from cmvs_pmvs_tpu_torch.io.ply import read_ply_xyz
+    from cmvs_pmvs_tpu_torch.models.cmvs import run_cmvs
+    from cmvs_pmvs_tpu_torch.models.gen_option import gen_option
+    from cmvs_pmvs_tpu_torch.parallel.clusters import (merge_models,
+                                                       run_clusters)
+    from cmvs_pmvs_tpu_torch.utils.synthetic import write_bundle_file
+    scene, root = write_scene()
+    write_bundle_file(scene, root, extent=2.5)
+    t0 = time.time()
+    for maximage in (6, 5, 4, 3):
+        c = run_cmvs(root, maximage=maximage, device=dev,
+                     log=lambda m: None)
+        log(f"pipeline: cmvs3 maximage {maximage}: clusters {c.timages}")
+        if len(c.timages) >= 2:
+            break
+    else:
+        raise AssertionError("pipeline: no maximage in 3..6 gave 2 "
+                             "clusters")
+    names = gen_option(root, level=0, csize=2, threshold=0.7, wsize=7,
+                       min_image_num=3)
+    log(f"pipeline: cmvs3 + genOption {time.time() - t0:.2f} s, maximage "
+        f"{maximage}, {len(names)} clusters")
+    wrappers = kernel_wrappers()
+    launches = {k: 0 for k in wrappers}
+    runs = []
+    for name in names:
+        for w in wrappers.values():
+            w.launches = 0
+        run, = run_clusters(root, names=[name], device=dev,
+                            log=lambda m: None, expand_iters=3,
+                            max_waves=12, refine_iters=8)
+        mine = {k: w.launches for k, w in wrappers.items()}
+        log(f"pipeline: {name} {run.patches} patches in {run.seconds:.2f} "
+            f"s, kernel launches {mine}")
+        if mine["incc_fan"] <= 0 or mine["windows"] <= 0:
+            raise AssertionError(f"pipeline: {name} did not launch K1 and "
+                                 f"K2: {mine}")
+        for k, v in mine.items():
+            launches[k] += v
+        runs.append(run)
+    out = merge_models(root)
+    total = sum(r.patches for r in runs)
+    recs = read_patch_file(out + ".patch")
+    counts = {"patch": len(recs), "ply": len(read_ply_xyz(out + ".ply")),
+              "pset": len(read_pset(out + ".pset")[0])}
+    if any(v != total for v in counts.values()) or total == 0:
+        raise AssertionError(f"pipeline: merged counts {counts} != {total}")
+    coord = np.array([r.coord[:3] for r in recs])
+    d = scene.surface_distance(coord) / np.array([r.dscale for r in recs])
+    med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
+    log(f"pipeline: merged {total} patches ({counts}), surface distance / "
+        f"dscale median {med:.4f} q90 {q90:.4f}")
+    if not (med < 0.4 and q90 < 1.5):
+        raise AssertionError(f"pipeline: accuracy bars missed: median "
+                             f"{med}, q90 {q90}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "patches": [r.patches for r in runs],
+            "seconds": [r.seconds for r in runs], "maximage": maximage}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -1072,6 +1250,8 @@ def main() -> int:
     ablation = phase_ablation(dev, other)
     runs["ablation"] = ablation["launches"]
     abl = ablation["results"]
+    phase_cmvs_scale()
+    runs["pipeline"] = phase_pipeline(dev)["launches"]
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",

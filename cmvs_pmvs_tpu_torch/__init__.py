@@ -1,4 +1,4 @@
-"""cmvs_pmvs_tpu_torch: the PMVS main path in PyTorch + CUDA.
+"""cmvs_pmvs_tpu_torch: CMVS + PMVS in PyTorch + CUDA.
 
 A port of `cmvs_pmvs_tpu` (the JAX/Pallas reference package, which stays
 untouched beside it) to PyTorch on an NVIDIA Hopper GPU. The layer map
@@ -11,10 +11,14 @@ find:
              ops/fan: the refine fan INCC, v2 and v1; ops/incc: the
              fused block INCC; ops/windows: normalized texture
              windows), LM refinement, Harris/DoG detection
-  models/  - the PMVS engine: seed, expand, filter, patch cloud, grid
-  io/      - cameras, images, vis.dat, .patch/.pset/.ply
+  models/  - the PMVS engine: seed, expand, filter, patch cloud, grid;
+             CMVS view clustering (cmvs.py) and genOption
+  parallel/ - the cluster scheduler (one reconstruct per cluster) and
+             the merge of the cluster clouds
+  io/      - cameras, images, vis.dat, .patch/.pset/.ply, bundle.rd.out,
+             ske.dat
   utils/   - options, synthetic scenes, tracing
-  cli/     - the pmvs3 entry point
+  cli/     - the pmvs3, cmvs3, genOption and pmvs3_all entry points
 
 The package imports neither jax nor anything of `cmvs_pmvs_tpu`: the
 reference package's jax-free modules it needs (io/, utils/options.py,

@@ -1,7 +1,7 @@
 """Carry reference-package state into the port.
 
 There are no weights; the state of a reconstruction is cameras, pyramid,
-patch cloud, grid and thresholds. Each `*_from_numpy` takes a mapping of
+patch cloud, grid and thresholds, and CMVS's clustering problem. Each `*_from_numpy` takes a mapping of
 the JAX dataclass's field names to numpy arrays (e.g.
 `{f.name: np.asarray(getattr(x, f.name)) for f in fields(x)}`) plus a
 device, and casts to the port's dtypes, so tests can feed both packages
@@ -17,6 +17,7 @@ import torch
 
 from .geom.cameras import CameraSet
 from .image.pyramid import PyramidSet
+from .models.cmvs import CmvsProblem
 from .models.config import Thresholds
 from .models.grid import GridState
 from .models.patches import PatchCloud
@@ -83,3 +84,18 @@ def engine_state_from_jax_checkpoint(npz_path: str, device="cpu"):
     return (_build(PatchCloud, d, device, "cloud_"),
             _build(GridState, d, device, "grid_"),
             _build(Thresholds, d, device, "thr_"), int(d["iteration"]))
+
+
+def cmvs_problem_from_arrays(coords, visibles, centers, ipscales, widths,
+                             heights, dlevel, device="cpu"):
+    """The port's CmvsProblem from a CMVS problem's fields (e.g. those of
+    the JAX package's CmvsProblem, read off it by name): coordinates,
+    centres and scales as float64 tensors on `device`, image sizes as
+    int64 arrays, visibles as lists of ints."""
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+    return CmvsProblem(
+        coords=f64(coords), visibles=[[int(i) for i in v] for v in visibles],
+        centers=f64(centers), ipscales=f64(ipscales),
+        widths=np.asarray(widths, np.int64),
+        heights=np.asarray(heights, np.int64), dlevel=int(dlevel))

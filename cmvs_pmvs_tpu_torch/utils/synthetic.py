@@ -8,7 +8,9 @@ standard PMVS directory trees (visualize/ txt/ models/) so the full CLI
 pipeline can run on them.
 
 The port's own copy of cmvs_pmvs_tpu/utils/synthetic.py
-(the port imports nothing of the JAX package).
+(the port imports nothing of the JAX package), with two additions:
+`write_bundle_file` takes the extent of its SfM points (the JAX default),
+and `make_ring_bundle` is tests/test_cmvs_scale.py's CMVS bundle.
 """
 from __future__ import annotations
 
@@ -240,9 +242,11 @@ def make_occluded_scene(num_cameras: int = 10, width: int = 320,
 
 
 def write_bundle_file(scene: SyntheticScene, root: str,
-                      num_points: int = 400, seed: int = 7) -> None:
-    """Write a synthetic bundle.rd.out: SfM points sampled on the plane,
-    visible in every camera whose projection lands inside the image.
+                      num_points: int = 400, seed: int = 7,
+                      extent: float = 0.45) -> None:
+    """Write a synthetic bundle.rd.out: SfM points sampled on the plane
+    z = 0 within |x|, |y| <= extent, visible in every camera whose
+    projection lands inside the image.
 
     Bundler convention stores R/t with the camera looking down -z; the
     reference drops cameras with f=0 and reads only visibility here, so
@@ -255,8 +259,8 @@ def write_bundle_file(scene: SyntheticScene, root: str,
     trials = 0
     while len(pts) < num_points and trials < num_points * 20:
         trials += 1
-        u = rng.uniform(-0.45, 0.45)
-        v = rng.uniform(-0.45, 0.45)
+        u = rng.uniform(-extent, extent)
+        v = rng.uniform(-extent, extent)
         X = u * np.array([1.0, 0, 0]) + v * np.array([0.0, 1.0, 0])
         Xh = np.append(X, 1.0)
         vis = []
@@ -447,3 +451,32 @@ def make_textured_scene(num_cameras: int = 10, width: int = 320,
         P=np.stack(Ps), centers=np.stack(centers),
         images=np.stack(images), width=width, height=height,
         boxes=boxes)
+
+
+def make_ring_bundle(n_cams: int = 300, n_pts: int = 30_000, seed: int = 7,
+                     vis_window=(0.15, 0.5)) -> dict:
+    """A CMVS problem at scale: cameras on a ring looking at a noisy
+    point sphere, each point seen by the cameras within a random angular
+    window of it (the generator of tests/test_cmvs_scale.py, bit for
+    bit). Returns the problem's fields (coords, visibles, centers,
+    ipscales, widths, heights, dlevel) as numpy arrays and lists."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, n_cams, endpoint=False)
+    centers = np.stack([6.0 * np.cos(ang), 6.0 * np.sin(ang),
+                        rng.normal(0, 0.5, n_cams)], axis=1)
+    ipscales = np.full(n_cams, 800.0)
+    pts = rng.normal(0, 1.0, (n_pts, 3))
+    pang = np.arctan2(pts[:, 1], pts[:, 0])
+    diff = np.abs((pang[:, None] - ang[None] + np.pi)
+                  % (2 * np.pi) - np.pi)
+    vis = diff < rng.uniform(*vis_window, (n_pts, 1))
+    visibles = []
+    keep = []
+    for i in range(n_pts):
+        v = np.nonzero(vis[i])[0]
+        if len(v) >= 2:
+            visibles.append(v.tolist())
+            keep.append(i)
+    return dict(coords=pts[keep], visibles=visibles, centers=centers,
+                ipscales=ipscales, widths=np.full(n_cams, 640),
+                heights=np.full(n_cams, 480), dlevel=5)

@@ -700,3 +700,116 @@ def test_wrappers_reject_bad_arguments(setup):
     rel = torch.zeros((2 * T, 49), device=s["dev"])
     with pytest.raises(ValueError):
         incc.incc_blocks(atlas, starts, rel, rel, ok[..., 0].flatten(), t=5)
+
+
+# ---- CMVS (models/cmvs.py): the card against the port's CPU path ----
+# The card and the CPU run the same torch code: float32 adds and
+# multiplies are correctly rounded on both, roots, quotients, arccos and
+# exp are taken in float64 and rounded to float32, and sums run in a
+# fixed order, so results are bit-equal but where a float64
+# transcendental's last bit falls on a float32 rounding boundary (rare;
+# one ulp of the angle then moves a pair score by up to ~1e-5 relative,
+# hence rtol 1e-4 where values are compared).
+
+
+@pytest.fixture(scope="module")
+def cmvs_ring():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cmvs_pmvs_tpu_torch.convert import cmvs_problem_from_arrays
+    from cmvs_pmvs_tpu_torch.utils.synthetic import make_ring_bundle
+    f = make_ring_bundle(n_cams=120, n_pts=4000, seed=11)
+    return {d: cmvs_problem_from_arrays(**f, device=d)
+            for d in ("cpu", "cuda")}
+
+
+def _cmvs_state(prob):
+    from cmvs_pmvs_tpu_torch.models.cmvs import CmvsClustering
+    c = CmvsClustering(prob, maximage=30, log=lambda *a: None)
+    c.set_vpoints()
+    c.set_neighbors()
+    c.set_score_thresholds()
+    return c
+
+
+def test_cmvs_pair_scores_and_score2(cmvs_ring):
+    from cmvs_pmvs_tpu_torch.models.cmvs import (pad_lists,
+                                                 pair_scores_batch,
+                                                 score2_from_pair)
+    cpu, gpu = cmvs_ring["cpu"], cmvs_ring["cuda"]
+    vis = pad_lists(cpu.visibles)
+    vis[np.random.default_rng(0).random(vis.shape) < 0.2] = -1
+    out = {}
+    for name, p in (("cpu", cpu), ("cuda", gpu)):
+        v = torch.as_tensor(vis, device=p.device)
+        pair = pair_scores_batch(p.centers, p.ipscales, p.coords,
+                                 v.clamp(min=0), v >= 0)
+        sc, ch = score2_from_pair(pair, v >= 0, 4)
+        out[name] = (pair.cpu(), sc.cpu(), ch.cpu())
+    (pa, sa, ca), (pb, sb, cb) = out["cpu"], out["cuda"]
+    fin = torch.isfinite(pa)
+    assert torch.equal(fin, torch.isfinite(pb))
+    torch.testing.assert_close(pb[fin], pa[fin], rtol=1e-4, atol=0)
+    assert (pb[fin] == pa[fin]).float().mean() > 0.9999
+    torch.testing.assert_close(sb, sa, rtol=1e-4, atol=0)
+    assert torch.equal(cb[:, 2:], ca[:, 2:])
+    assert torch.equal(cb[:, :2].sort(1).values, ca[:, :2].sort(1).values)
+
+
+def test_cmvs_link_matrix_deterministic(cmvs_ring):
+    a = _cmvs_state(cmvs_ring["cpu"])
+    b = _cmvs_state(cmvs_ring["cuda"])
+    La, Lb = a._link_matrix(), b._link_matrix()
+    assert np.array_equal(b._link_matrix(), Lb)        # run to run
+    np.testing.assert_allclose(Lb, La, rtol=1e-4, atol=0)
+
+
+def test_cmvs_segment_sum_and_radius_search_exact(cmvs_ring):
+    from cmvs_pmvs_tpu_torch.models.cmvs import radius_pairs, segment_sum
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 500, 200_000)
+    vals = rng.normal(0, 1, 200_000) * 10.0 ** rng.uniform(-8, 8, 200_000)
+    got = segment_sum(torch.as_tensor(keys, device="cuda"),
+                      torch.as_tensor(vals, device="cuda"), 600)
+    assert np.array_equal(got.cpu().numpy(),
+                          np.bincount(keys, weights=vals, minlength=600))
+    pts = rng.normal(0, 1, (3000, 3))
+    radii = 10.0 ** rng.uniform(-2.0, -0.5, 3000)
+    want = radius_pairs(torch.as_tensor(pts), torch.as_tensor(radii))
+    got = radius_pairs(torch.as_tensor(pts, device="cuda"),
+                       torch.as_tensor(radii, device="cuda"))
+    assert torch.equal(got.cpu(), want) and len(want) > 100
+    d = np.linalg.norm(pts[:, None] - pts[None], axis=-1)
+    i, j = np.nonzero((d <= radii[:, None]) & (d <= radii[None, :]))
+    assert {(a, b) for a, b in zip(i, j) if a < b} == {
+        tuple(p) for p in want.tolist()}
+
+
+def test_run_cmvs_card_equals_cpu(tmp_path):
+    """test_cmvs.py's scene (12 cameras, 160x120, 300 points,
+    maximage=3): the same ske.dat, vis.dat and centers-*.ply from the
+    card as from the CPU path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import filecmp
+    import os
+
+    from cmvs_pmvs_tpu_torch.models.cmvs import run_cmvs
+    from cmvs_pmvs_tpu_torch.utils.synthetic import (write_bundle_file,
+                                                     write_pmvs_tree)
+    scene = make_plane_scene(num_cameras=12, width=160, height=120,
+                             ring_radius=1.5)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        root = str(tmp_path / dev)
+        write_pmvs_tree(scene, root)
+        write_bundle_file(scene, root, num_points=300)
+        runs[dev] = (root, run_cmvs(root, maximage=3, device=dev,
+                                    log=lambda *a: None))
+    assert runs["cuda"][1].timages == runs["cpu"][1].timages
+    names = ["ske.dat", "vis.dat"] + ["centers-%04d.ply" % i for i in
+                                      range(len(runs["cpu"][1].timages))]
+    for n in names:
+        assert filecmp.cmp(os.path.join(runs["cpu"][0], n),
+                           os.path.join(runs["cuda"][0], n),
+                           shallow=False), n
