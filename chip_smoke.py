@@ -68,6 +68,27 @@ raises on failure (the script then exits non-zero):
    just before and read just after (K1 and K2 must launch in each);
    the merged .patch/.ply/.pset counts must equal the sum of the
    clusters' and the merged cloud must pass phase 5's accuracy bars.
+12. The multi-rank paths (cmvs_pmvs_tpu_torch/parallel), on 4 spawned
+   rank processes that share the card (parallel/launch.RankPool: gloo
+   for world > 1, the gathers staged through host memory; NCCL for world
+   1). (a) sharding.sharded_refine_step at K4's shape (phase 7's 8192
+   patches x 6 views, 8 iterations) on 2 patch x 2 view ranks against
+   the single-rank central LM on the card: plane distance difference /
+   dscale median < 0.1 and q90 < 0.5, NCC median > 0.9, the collective
+   depth map equal to the gathered rows' own and its finite cells
+   overlapping the single rank's by >= 0.99, K4 launched on every rank;
+   then the same step at world 1 over NCCL, bit-equal to the ungrouped
+   call. (b) The data-parallel engine (reconstruct(..., mesh=
+   make_engine_mesh())) on phase 5's protocol on 2 ranks: phase 5's
+   bars, the count within 1% of phase 5's, the written .patch complete,
+   the ranks' clouds byte-identical, K1 and K2 launched on both.
+   (c) cross_cluster.exchange_halo between phase 11b's two clusters
+   after their first expand round, then their other two: something
+   injected, the median surface distance / dscale < 0.35 and within 0.1
+   of 11b's merge, the count within 0.75-1.35x of it, K1 and K2 on both
+   ranks. (d) scripts/scaling_curve's curve at 1, 2 and 4 ranks (logged,
+   no bar: on one card it is overhead, not scaling). Each run's kernel
+   launches are summed over its ranks into the kernels line.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -833,10 +854,10 @@ def kernel_wrappers():
             "moments_abl": moments_abl}
 
 
-def write_scene() -> tuple:
+def write_scene(name: str = "chip_smoke_scene") -> tuple:
     from cmvs_pmvs_tpu_torch.utils.synthetic import (make_occluded_scene,
                                                      write_pmvs_tree)
-    root = os.path.join(ROOT, "build", "chip_smoke_scene")
+    root = os.path.join(ROOT, "build", name)
     shutil.rmtree(root, ignore_errors=True)
     scene = make_occluded_scene(num_cameras=12, width=640, height=480,
                                 focal=700.0)
@@ -925,7 +946,7 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     if any(c != n for c in counts.values()):
         raise AssertionError(f"{label}: output counts {counts} != {n}")
     log(f"protocol[{label}]: outputs read back {counts}")
-    return launches, calls
+    return launches, calls, n
 
 
 def replay(calls, launch) -> dict:
@@ -1188,9 +1209,195 @@ def phase_pipeline(dev) -> dict:
     if not (med < 0.4 and q90 < 1.5):
         raise AssertionError(f"pipeline: accuracy bars missed: median "
                              f"{med}, q90 {q90}")
-    shutil.rmtree(root, ignore_errors=True)
     return {"launches": launches, "patches": [r.patches for r in runs],
-            "seconds": [r.seconds for r in runs], "maximage": maximage}
+            "seconds": [r.seconds for r in runs], "maximage": maximage,
+            "root": root, "scene": scene, "names": names, "median": med}
+
+
+def summed_launches(outs) -> dict:
+    """Every kernel's launches summed over the ranks' results."""
+    return {k: sum(o["launches"].get(k, 0) for o in outs)
+            for k in kernel_wrappers()}
+
+
+def rank_line(outs) -> str:
+    return "; ".join(
+        f"rank {r}: {o['seconds']:.2f} s, backend {o['backend']}, staged "
+        f"{o['staged'] or 'none'}, launches "
+        f"{ {k: v for k, v in o['launches'].items() if v} }"
+        for r, o in enumerate(outs))
+
+
+def phase_view_refine(pool, dev) -> dict:
+    """Phase 12a: sharding.sharded_refine_step at the K4 bench shape on 4
+    ranks (2 patch x 2 view) against the single-rank central LM on the
+    card; then a world-1 NCCL run, bit-equal to the ungrouped call."""
+    import torch
+    from cmvs_pmvs_tpu_torch.ops.refine import make_problem, refine_patches
+    from cmvs_pmvs_tpu_torch.parallel import workers
+    from cmvs_pmvs_tpu_torch.parallel.sharding import depth_map
+    from cmvs_pmvs_tpu_torch.utils.synthetic import make_plane_scene
+    cams, pyr, coord, normal, views, valid, dscale = plane_batch(6, dev)
+    scene = make_plane_scene(num_cameras=6, width=640, height=480,
+                             focal=800.0)
+    step = dict(level=0, wsize=7, min_image_num=3, csize=2, tn=6, gh=240,
+                gw=320, num_iters=8)
+    active = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    prob = make_problem(cams, 0, coord, normal, views, valid, dscale, 3)
+    t0 = time.time()
+    c_ref, n_ref, ncc_ref, _ = refine_patches(
+        cams, pyr, 0, 7, prob, coord, normal, num_iters=8, active=active,
+        use_fan=False)
+    torch.cuda.synchronize()
+    single_s = time.time() - t0
+    d_ref = depth_map(cams, 0, 2, 6, 240, 320, c_ref, active).cpu().numpy()
+    batch = {k: v.cpu().numpy() for k, v in dict(
+        coord=coord, normal=normal, views=views, valid=valid, dscale=dscale,
+        active=active).items()}
+    sc = dict(P=scene.P, images=np.stack(scene.images), num_levels=3)
+    outs = pool.run(workers.refine_step_job, 4, sc, batch, 2, step)
+    log(f"view_refine[4 ranks, 2 x 2]: {rank_line(outs)}; the "
+        f"single-rank central LM {single_s:.2f} s")
+    out = outs[0]
+    for o in outs[1:]:
+        for k in ("coord", "normal", "ncc", "dmap"):
+            if not np.array_equal(o[k], out[k]):
+                raise AssertionError(f"view_refine: ranks disagree on {k}")
+    ds = batch["dscale"]
+    agree = np.abs(scene.plane_distance(out["coord"][:, :3])
+                   - scene.plane_distance(c_ref.cpu().numpy()[:, :3])) / ds
+    med, q90 = float(np.median(agree)), float(np.quantile(agree, 0.9))
+    ncc_med = float(np.median(out["ncc"]))
+    own = depth_map(cams, 0, 2, 6, 240, 320,
+                    torch.as_tensor(out["coord"], device=dev),
+                    active).cpu().numpy()
+    fin, fin_ref = np.isfinite(out["dmap"]), np.isfinite(d_ref)
+    overlap = (fin & fin_ref).sum() / max(1, (fin | fin_ref).sum())
+    log(f"view_refine: plane distance difference / dscale against the "
+        f"single rank median {med:.4f} q90 {q90:.4f}; NCC median "
+        f"{ncc_med:.4f} (single rank {float(ncc_ref.median()):.4f}); depth "
+        f"map finite cells {int(fin.sum())} (single rank "
+        f"{int(fin_ref.sum())}, overlap {overlap:.4f}); the collective "
+        f"min-merge equals the gathered rows' map: "
+        f"{np.array_equal(own, out['dmap'])}")
+    if not (med < 0.1 and q90 < 0.5 and ncc_med > 0.9):
+        raise AssertionError(f"view_refine: bars missed: median {med}, q90 "
+                             f"{q90}, NCC median {ncc_med}")
+    if not np.array_equal(own, out["dmap"]) or overlap < 0.99:
+        raise AssertionError(f"view_refine: depth map: overlap {overlap}")
+    if any(o["launches"]["incc_blocks"] <= 0 for o in outs):
+        raise AssertionError("view_refine: K4 not launched on every rank")
+    if any(o["backend"] != "gloo" or not o["staged"] for o in outs):
+        raise AssertionError("view_refine: 4 ranks on one card must use "
+                             "gloo with staged gathers")
+    one, = pool.run(workers.refine_step_job, 1, sc, batch, 1, step)
+    bits = all(np.array_equal(one[k], v.cpu().numpy()) for k, v in
+               (("coord", c_ref), ("normal", n_ref), ("ncc", ncc_ref)))
+    log(f"view_refine[1 rank]: backend {one['backend']}, {one['seconds']:.2f}"
+        f" s, K4 launches {one['launches']['incc_blocks']}; bit-equal to "
+        f"the ungrouped call: {bits}")
+    if one["backend"] != "nccl" or not bits:
+        raise AssertionError("view_refine: the world-1 NCCL run is not "
+                             "bit-equal to the ungrouped call")
+    return summed_launches(outs)
+
+
+def phase_dp_engine(pool, dev, n_default: int, launches_default: dict):
+    """Phase 12b: the data-parallel engine on 2 ranks sharing the card,
+    the full protocol in the default configuration."""
+    from cmvs_pmvs_tpu_torch.io.patches import read_patch_file
+    from cmvs_pmvs_tpu_torch.parallel import workers
+    scene, root = write_scene("chip_smoke_dp")
+    run = dict(expand_iters=3, max_waves=12, refine_iters=8)
+    outs = pool.run(workers.engine_job, 2, root, "option.txt", 200_000, run)
+    n = outs[0]["count"]
+    d = scene.surface_distance(outs[0]["coord"][:, :3]) / outs[0]["dscale"]
+    med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
+    written = len(read_patch_file(os.path.join(root, "models",
+                                               "option.txt.patch")))
+    log(f"dp_engine[2 ranks]: {n} patches (phase 5: {n_default}), surface "
+        f"distance / dscale median {med:.4f} q90 {q90:.4f}, written {written}"
+        f"; clouds byte-identical: {outs[0]['digest'] == outs[1]['digest']}")
+    log(f"dp_engine: {rank_line(outs)}; phase 5's launches "
+        f"{ {k: v for k, v in launches_default.items() if v} }")
+    if outs[0]["digest"] != outs[1]["digest"]:
+        raise AssertionError("dp_engine: the ranks' clouds differ")
+    if not (n >= 80_000 and med < 0.4 and q90 < 1.5 and written == n
+            and abs(n - n_default) <= n_default // 100):
+        raise AssertionError(f"dp_engine: bars missed: {n} patches "
+                             f"(phase 5 {n_default}), median {med}, q90 "
+                             f"{q90}, written {written}")
+    if any(o["launches"]["incc_fan"] <= 0 or o["launches"]["windows"] <= 0
+           for o in outs):
+        raise AssertionError("dp_engine: K1 and K2 not launched on both "
+                             "ranks")
+    shutil.rmtree(root, ignore_errors=True)
+    return summed_launches(outs)
+
+
+def phase_halo(pool, pipeline: dict) -> dict:
+    """Phase 12c: exchange_halo on phase 11b's two clusters - the first
+    expand round, the exchange, the other two rounds - against 11b's
+    file-mediated merge, with test_cross_cluster.py's bars."""
+    from cmvs_pmvs_tpu_torch.parallel import workers
+    names, scene = pipeline["names"], pipeline["scene"]
+    if len(names) != 2:
+        raise AssertionError(f"halo: phase 11b gave {len(names)} clusters, "
+                             f"the exchange takes 2")
+    first = dict(expand_iters=1, max_waves=12, refine_iters=8)
+    rest = dict(expand_iters=3, start_iter=1, max_waves=12, refine_iters=8)
+    outs = pool.run(workers.halo_job, 2, pipeline["root"], names, True, 256,
+                    200_000, first, rest)
+    coord = np.concatenate([o["coord"] for o in outs])
+    dscale = np.concatenate([o["dscale"] for o in outs])
+    off = float(np.median(scene.surface_distance(coord[:, :3]) / dscale))
+    n_b, off_b = sum(pipeline["patches"]), pipeline["median"]
+    injected = [o["injected"] for o in outs]
+    log(f"halo[2 ranks]: injected {injected}, {len(coord)} patches "
+        f"({[len(o['coord']) for o in outs]}) against 11b's {n_b}, median "
+        f"surface distance / dscale {off:.4f} against 11b's {off_b:.4f}; "
+        f"{rank_line(outs)}")
+    if not (sum(injected) > 0 and off < 0.35 and off_b < 0.35
+            and abs(off - off_b) < 0.1
+            and 0.75 * n_b < len(coord) < 1.35 * n_b):
+        raise AssertionError("halo: bars missed")
+    if any(o["launches"]["incc_fan"] <= 0 or o["launches"]["windows"] <= 0
+           for o in outs):
+        raise AssertionError("halo: K1 and K2 not launched on both ranks")
+    return summed_launches(outs)
+
+
+def phase_multi_rank(dev, n_default: int, launches_default: dict,
+                     pipeline: dict) -> dict:
+    """Phase 12: the multi-rank paths, ranks spawned once (4 processes
+    sharing the card: gloo for world > 1, NCCL for world 1)."""
+    import torch
+    from cmvs_pmvs_tpu_torch.parallel.launch import RankPool
+    from cmvs_pmvs_tpu_torch.scripts import scaling_curve
+    torch.cuda.empty_cache()
+    store = os.path.join(ROOT, "build", "chip_smoke_store")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store)
+    runs = {}
+    t0 = time.time()
+    with RankPool(4, "cuda", store, threads=2, timeout=600) as pool:
+        log(f"multi_rank: 4 rank processes spawned "
+            f"({time.time() - t0:.2f} s to start)")
+        for label, fn in (
+                ("view_refine", lambda: phase_view_refine(pool, dev)),
+                ("dp_engine", lambda: phase_dp_engine(
+                    pool, dev, n_default, launches_default)),
+                ("halo", lambda: phase_halo(pool, pipeline))):
+            t1 = time.time()
+            runs[label] = fn()
+            log(f"multi_rank: {label} {time.time() - t1:.2f} s")
+        t1 = time.time()
+        sc = scaling_curve.curve(pool)
+        log(f"multi_rank: scaling curve (refinements/s by ranks sharing "
+            f"the card) {json.dumps(sc)} ({time.time() - t1:.2f} s)")
+    shutil.rmtree(store, ignore_errors=True)
+    log(f"multi_rank: phase 12 {time.time() - t0:.2f} s")
+    return runs
 
 
 def main() -> int:
@@ -1227,7 +1434,7 @@ def main() -> int:
     k2 = phase_block("windows", dev, other)
     scene, root = write_scene()
     runs = {}
-    runs["default"], calls = phase_protocol(
+    runs["default"], calls, n_default = phase_protocol(
         dev, scene, root, "default", {}, need=("incc_fan", "windows"))
     k1[4].update(protocol_kernel_time("default", "incc_fan",
                                       calls["incc_fan"], other))
@@ -1235,12 +1442,12 @@ def main() -> int:
                                    other))
     k3 = phase_k3(pyr, fan_in, other)
     k4 = phase_block("incc_blocks", dev, other)
-    runs["fan_v1"], calls = phase_protocol(
+    runs["fan_v1"], calls, _ = phase_protocol(
         dev, scene, root, "fan_v1", {"USE_FAN_V2": False},
         need=("incc_fan_v1", "windows"), absent=("incc_fan",))
     k3[4].update(protocol_kernel_time("fan_v1", "incc_fan_v1",
                                       calls["incc_fan_v1"], other))
-    runs["central"], calls = phase_protocol(
+    runs["central"], calls, _ = phase_protocol(
         dev, scene, root, "central", {"USE_FAN": False},
         need=("incc_blocks", "windows"), absent=("incc_fan", "incc_fan_v1"))
     k4.update(protocol_kernel_time("central", "incc_blocks",
@@ -1251,7 +1458,10 @@ def main() -> int:
     runs["ablation"] = ablation["launches"]
     abl = ablation["results"]
     phase_cmvs_scale()
-    runs["pipeline"] = phase_pipeline(dev)["launches"]
+    pipeline = phase_pipeline(dev)
+    runs["pipeline"] = pipeline["launches"]
+    runs.update(phase_multi_rank(dev, n_default, runs["default"], pipeline))
+    shutil.rmtree(pipeline["root"], ignore_errors=True)
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",

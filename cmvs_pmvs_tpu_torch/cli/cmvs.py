@@ -4,11 +4,13 @@
 
 The positional arguments are cmvs3's (CPU is accepted and unused, as in
 the JAX package). Runs on CUDA unless --device says otherwise; with the
-default device and no CUDA it raises.
+default device and no CUDA it raises. With WORLD_SIZE set (torchrun),
+rank 0 clusters on its own device and the other ranks wait for it.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -24,7 +26,16 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu only on request)")
     args = ap.parse_args(argv)
     from ..models.cmvs import run_cmvs
-    run_cmvs(args.prefix, maximage=args.maximage, device=args.device)
+    if "WORLD_SIZE" not in os.environ:
+        run_cmvs(args.prefix, maximage=args.maximage, device=args.device)
+        return 0
+    import torch.distributed as dist
+    from ..parallel.comm import init_from_env
+    rank, _, device = init_from_env(device=args.device)
+    if rank == 0:
+        run_cmvs(args.prefix, maximage=args.maximage, device=device)
+    dist.barrier()
+    dist.destroy_process_group()
     return 0
 
 

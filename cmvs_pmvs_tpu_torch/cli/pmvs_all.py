@@ -4,15 +4,20 @@ and merge (replaces `sh pmvs.sh`, reference genOption.cpp:58-74).
     pmvs3_all-torch prefix [process_index process_count] [--no-merge]
                     [--device cuda]
 
-With no index/count the torch.distributed rank and world size are used
-when a process group is initialised, else 0 and 1. Clusters already
-marked done (models/option-%04d.done) are skipped. Process 0 merges the
-clouds into models/all.{patch,pset,ply}. Runs on CUDA unless --device
-says otherwise; with the default device and no CUDA it raises.
+With no index/count and WORLD_SIZE set (torchrun --nproc_per_node N -m
+cmvs_pmvs_tpu_torch.cli.pmvs_all prefix), each rank joins the process
+group (parallel/comm.init_from_env), takes its round-robin share of the
+clusters on its own device (cuda:LOCAL_RANK), and rank 0 merges after
+a barrier, once every rank has written its clusters; otherwise the
+rank and world size of an initialised group, else 0 and 1. Clusters
+already marked done (models/option-%04d.done) are skipped. Process 0
+merges the clouds into models/all.{patch,pset,ply}. Runs on CUDA unless
+--device says otherwise; with the default device and no CUDA it raises.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -26,19 +31,28 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only on request)")
     args = ap.parse_args(argv)
-    from ..device import resolve_device
+    import torch.distributed as dist
+    from ..parallel import comm
     from ..parallel.clusters import (merge_models, process_topology,
                                      run_clusters)
-    device = resolve_device(args.device)
+    device = comm.rank_device(args.device)
     pidx, pcnt = args.process_index, args.process_count
-    if pidx is None or pcnt is None:
+    joined = False
+    if (pidx is None or pcnt is None) and "WORLD_SIZE" in os.environ:
+        pidx, pcnt, device = comm.init_from_env(device=args.device)
+        joined = True
+    elif pidx is None or pcnt is None:
         pidx, pcnt = process_topology()
     runs = run_clusters(args.prefix, process_index=pidx, process_count=pcnt,
                         checkpoint=True, device=device)
     print(f"{len(runs)} clusters, {sum(r.patches for r in runs)} patches")
+    if joined:
+        dist.barrier()
     if not args.no_merge and pidx == 0:
         out = merge_models(args.prefix)
         print(f"merged -> {out}.(patch|pset|ply)")
+    if joined:
+        dist.destroy_process_group()
     return 0
 
 

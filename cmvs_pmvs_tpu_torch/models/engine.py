@@ -108,8 +108,16 @@ class PMVSEngine:
 
     def __init__(self, scene: SceneData, opt: PMVSOptions,
                  p_cap: int = 200_000, log=print, tracer=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        """`mesh`: an engine mesh (parallel/engine_shard.make_engine_mesh)
+        shared by every rank of the process group; each rank then runs
+        its slice of every candidate batch and holds the whole state,
+        re-synchronised from rank 0 after every phase."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.engine_shard import round_capacity
+            p_cap = round_capacity(p_cap, mesh)
         self.scene = replace(scene, cams=tree_to(scene.cams, self.device),
                              pyr=tree_to(scene.pyr, self.device),
                              visdata=scene.visdata.to(self.device),
@@ -169,6 +177,20 @@ class PMVSEngine:
             for f in dataclasses.fields(big)})
         self.p_cap = new_cap
 
+    def _agreed(self, n: int) -> int:
+        """`n`, or under a mesh the largest of the ranks' `n`, so that
+        every rank grows its cloud alike."""
+        if self.mesh is None:
+            return n
+        from ..parallel.engine_shard import agreed_max
+        return agreed_max(self.mesh, n, self.device)
+
+    def _sync(self):
+        """Under a mesh, replace the cloud and grid by rank 0's."""
+        if self.mesh is not None:
+            from ..parallel.engine_shard import sync_state
+            sync_state(self)
+
     def _compact(self):
         """Re-pack alive rows to the prefix; remap grid.depth_idx."""
         self.cloud, inv = compact_cloud(self.cloud)
@@ -209,7 +231,7 @@ class PMVSEngine:
         t1 = time.time()
         with tr.span("seed", block=True):
             def ensure(needed: int):
-                headroom = int(self.cloud.count()) + needed
+                headroom = self._agreed(int(self.cloud.count()) + needed)
                 if headroom > self.p_cap:
                     self._grow(headroom)
                 return self.cloud
@@ -217,13 +239,14 @@ class PMVSEngine:
             self.cloud, sdrop = run_seed(
                 cams, pyr, cfg, self.thr, self.scene.visdata, feats,
                 ref_views, rv_valid, self.cloud, refine_iters=refine_iters,
-                ensure_capacity=ensure)
+                ensure_capacity=ensure, mesh=self.mesh)
             nseed = int(self.cloud.count())
         tr.add_counter("seed", "patches", nseed)
         self.log(f"seed: {nseed} patches ({time.time() - t1:.1f}s)")
         self._check_capacity(int(sdrop))
         self.cloud, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
                                                    self.cloud, self.grid)
+        self._sync()
         return self._run_iters(0, expand_iters, max_waves, refine_iters,
                                t0=t0, filters=filters)
 
@@ -237,6 +260,7 @@ class PMVSEngine:
         if start_iter > 0:
             self.cloud, self.grid = refresh_visibility(
                 cams, pyr, cfg, self.thr, self.cloud, self.grid)
+            self._sync()
         for it in range(start_iter, expand_iters):
             t2 = time.time()
             frontier = self.cloud.alive.clone()
@@ -255,12 +279,14 @@ class PMVSEngine:
                     if ncand == 0:
                         break
                     cbudget = min(ncand, COMMIT_CAP)
-                    if n_alive + cbudget > self.p_cap:
-                        self._grow(max(self.p_cap * 2, n_alive + cbudget))
+                    need = self._agreed(n_alive + cbudget)
+                    if need > self.p_cap:
+                        self._grow(max(self.p_cap * 2, need))
                     self.cloud, self.grid, frontier, st = expand_commit(
                         cams, pyr, cfg, self.thr, self.scene.visdata,
                         self.cloud, self.grid, disc, cbudget,
-                        refine_iters=refine_iters)
+                        refine_iters=refine_iters, mesh=self.mesh)
+                    self._sync()
                     acc, vdrops, dropped, frn = (int(v) for v in torch.stack(
                         [st.accepted, st.view_drops.to(st.accepted.dtype),
                          st.dropped.to(st.accepted.dtype),
@@ -286,6 +312,7 @@ class PMVSEngine:
                 self.cloud, self.grid, fstats = run_filters(
                     cams, pyr, cfg, self.thr, self.cloud, self.grid)
                 self._compact()
+                self._sync()
             flat = [v for pair in fstats.values() for v in pair]
             vals = [int(v) for v in torch.stack(
                 [torch.as_tensor(v, device=self.device) for v in flat]
@@ -368,16 +395,20 @@ class PMVSEngine:
 
 def reconstruct(prefix: str, option_name: str, p_cap: int = 200_000,
                 log=print, profile_dir: str | None = None, device="cuda",
-                **run_kwargs) -> PMVSEngine:
-    """pmvs3 entry: load, run, write models/<option> (pmvs.cpp:7-63)."""
+                mesh=None, **run_kwargs) -> PMVSEngine:
+    """pmvs3 entry: load, run, write models/<option> (pmvs.cpp:7-63).
+    With an engine `mesh` every rank of the group calls it; the ranks
+    end with rank 0's cloud, and rank 0 alone writes."""
     dev = resolve_device(device)
     opt = PMVSOptions.parse(os.path.join(prefix, option_name))
     scene = load_scene(prefix, opt, device=dev)
     tracer = Tracer(profile_dir=profile_dir)
     engine = PMVSEngine(scene, opt, p_cap=p_cap, log=log, tracer=tracer,
-                        device=dev)
+                        device=dev, mesh=mesh)
     with tracer.trace():
         engine.run(**run_kwargs)
+    if mesh is not None and mesh.patch != 0:
+        return engine
     out = os.path.join(prefix, "models", option_name)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     engine.write(out)

@@ -234,11 +234,12 @@ def _bump(grid: GridState, cfg: EngineConfig, thr: Thresholds, images,
 def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
                   thr: Thresholds, visdata, cloud: PatchCloud,
                   grid: GridState, disc: DiscoverResult, cbudget: int,
-                  refine_iters: int = 10):
+                  refine_iters: int = 10, mesh=None):
     """Wave stage 2: refine + postProcess the first `cbudget` surviving
     candidates (best-first) and commit the successes. Candidates beyond
     the budget requeue their parents. Returns (cloud, grid,
-    new_frontier [P], stats)."""
+    new_frontier [P], stats). `mesh`: an engine mesh splitting the refine
+    batch over ranks."""
     p = cloud.capacity
     dev = cloud.coord.device
     pos = torch.nonzero(disc.sval).flatten()[:cbudget]
@@ -257,7 +258,8 @@ def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
 
     res = process_candidates_chunked(cams, pyr, cfg, thr, visdata, coord,
                                      normal, vmask, ref, depth=1, grid=grid,
-                                     cloud=cloud, refine_iters=refine_iters)
+                                     cloud=cloud, refine_iters=refine_iters,
+                                     mesh=mesh)
     success = res.success
 
     # parent dflag |= sector bit on failure (expand.cpp:98-103); a

@@ -59,11 +59,22 @@ def process_candidates_chunked(cams: CameraSet, pyr: PyramidSet,
                                depth: int, grid: GridState | None = None,
                                cloud: PatchCloud | None = None,
                                active=None, refine_iters: int = 12,
-                               chunk: int = PROCESS_CHUNK) -> ProcessResult:
-    """process_candidates over consecutive `chunk`-row slices."""
+                               chunk: int = PROCESS_CHUNK,
+                               mesh=None) -> ProcessResult:
+    """process_candidates over consecutive `chunk`-row slices. With an
+    engine `mesh` (parallel/engine_shard) each rank runs its equal slice
+    of the batch and the slices' results are gathered on every rank."""
     b = coord.shape[0]
     if active is None:
         active = torch.ones(b, dtype=torch.bool, device=coord.device)
+    if mesh is not None:
+        from ..parallel.engine_shard import gather_result, shard_rows
+        rows, act = shard_rows(mesh, b, active)
+        part = process_candidates_chunked(
+            cams, pyr, cfg, thr, visdata, coord[rows], normal[rows],
+            vmask[rows], ref[rows], depth=depth, grid=grid, cloud=cloud,
+            active=act, refine_iters=refine_iters, chunk=chunk)
+        return gather_result(mesh, part, b)
     parts = [process_candidates(cams, pyr, cfg, thr, visdata,
                                 coord[s:s + chunk], normal[s:s + chunk],
                                 vmask[s:s + chunk], ref[s:s + chunk],

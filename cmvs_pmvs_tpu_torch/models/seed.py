@@ -181,9 +181,10 @@ def _argmax_per_group(group, score, valid, num_groups: int):
 
 def seed_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
                 thr: Thresholds, visdata, cand: SeedCandidates, keep,
-                cloud: PatchCloud, refine_iters: int = 12):
+                cloud: PatchCloud, refine_iters: int = 12, mesh=None):
     """Seed stage 2: refine the kept candidates and keep one winner per
-    reference cell (seed.cpp:186-199). Returns (cloud, dropped)."""
+    reference cell (seed.cpp:186-199). Returns (cloud, dropped). `mesh`:
+    an engine mesh splitting the refine batch over ranks."""
     sel = torch.nonzero(keep).flatten()
     coord = cand.coord[sel]
     ref = cand.ref[sel]
@@ -200,7 +201,8 @@ def seed_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     vmask[rows, other] = True
     res = process_candidates_chunked(cams, pyr, cfg, thr, visdata, coord,
                                      normal, vmask, ref.to(torch.int32),
-                                     depth=0, refine_iters=refine_iters)
+                                     depth=0, refine_iters=refine_iters,
+                                     mesh=mesh)
     success = res.success
     score = (res.ncc - thr.ncc).clamp(min=0.0) * (res.images >= 0).sum(1)
     keep_mask = success & _argmax_per_group(cell, score, success,
@@ -217,7 +219,7 @@ def seed_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
 def run_seed(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
              thr: Thresholds, visdata, feats, ref_views, ref_views_valid,
              cloud: PatchCloud, refine_iters: int = 12,
-             ensure_capacity=None):
+             ensure_capacity=None, mesh=None):
     """Full seeding phase (CSeed::run, seed.cpp:40-107). The refine batch
     is the kept-candidate count; `ensure_capacity(needed)` may grow the
     cloud before the commit so no accepted seed is dropped."""
@@ -226,4 +228,4 @@ def run_seed(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     if ensure_capacity is not None:
         cloud = ensure_capacity(int(keep.sum()))
     return seed_commit(cams, pyr, cfg, thr, visdata, cand, keep, cloud,
-                       refine_iters=refine_iters)
+                       refine_iters=refine_iters, mesh=mesh)

@@ -23,6 +23,13 @@ Two LM paths, as in the reference package:
 `USE_FAN` overrides the default for every call (None: fan on CUDA,
 central differences on CPU; False is the reference's
 USE_PALLAS_INCC=False); the per-call `use_fan=` argument overrides both.
+
+`view_group` (the reference's `view_axis`): a process group over which a
+patch's views are split, each rank holding the reference view in slot 0
+and its share of the others (parallel/sharding). The objective's sums,
+the normal equations and the final score's sums are all-reduced over it
+at the reference's psum points, so every rank takes the same steps; as
+in the reference, only the central-difference LM runs view-parallel.
 """
 from __future__ import annotations
 
@@ -221,9 +228,17 @@ def per_view_inccs(cams, pyr, level, wsize, prob: RefineProblem, coord,
         pair_ok
 
 
+def _all_reduce(t, group):
+    """Sum of `t` over the ranks of `group` (the reference's psum)."""
+    from ..parallel.comm import all_reduce_
+    return all_reduce_(t, group=group)
+
+
 def incc_objective(cams, pyr, level, wsize, prob: RefineProblem, p,
-                   use_fan: bool | None = None):
-    """The scalar objective my_f (optim.cpp:507-578), batched.
+                   use_fan: bool | None = None, view_group=None):
+    """The scalar objective my_f (optim.cpp:507-578), batched. With
+    `view_group`, the per-view sums and counts are summed over the
+    group's view shards (the reference counts the reference view once).
     Returns (f [B], incc [B, T], pair_ok [B, T])."""
     coord, normal = decode_params(cams, prob, p)
     incc, ref_ok, pair_ok = per_view_inccs(cams, pyr, level, wsize, prob,
@@ -231,6 +246,15 @@ def incc_objective(cams, pyr, level, wsize, prob: RefineProblem, p,
     denom = pair_ok.sum(-1)
     nviews = prob.view_valid.sum(-1)
     total = torch.where(pair_ok, incc, torch.zeros_like(incc)).sum(-1)
+    if view_group is not None:
+        # one all-reduce for reference refine.py:267-270's three psums;
+        # the counts are small integers, exact in float32
+        sums = _all_reduce(torch.stack([denom.to(total.dtype),
+                                        (nviews - 1).to(total.dtype),
+                                        total]), view_group)
+        denom = sums[0].to(denom.dtype)
+        nviews = sums[1].to(nviews.dtype) + 1
+        total = sums[2]
     mininum = nviews.clamp(max=prob.min_image_num)
     mean = total / denom.clamp(min=1)
     bad = (~ref_ok) | (denom < mininum - 1)
@@ -358,17 +382,19 @@ def _refine_patches_fan(cams, pyr, level, wsize, prob: RefineProblem,
 def refine_patches(cams: CameraSet, pyr: PyramidSet, level: int, wsize: int,
                    prob: RefineProblem, coord, normal, num_iters: int = 12,
                    active=None, with_ncc: bool = True,
-                   use_fan: bool | None = None):
+                   use_fan: bool | None = None, view_group=None):
     """Damped Gauss-Newton minimization of the robust INCC objective
     (replaces refinePatchBFGS, optim.cpp:580-658). Returns (coord,
     normal, ncc, final_f); `active` [B] bool rows pass through unchanged
     when False. The fan path runs when `use_fan` is True, or when it is
     None and USE_FAN is True, or when both are None and the tensors are
-    on CUDA."""
+    on CUDA; never with `view_group` (the views split over its ranks,
+    reference refine.py:485), which takes the central-difference LM on
+    every device (its objective is K4 on CUDA)."""
     if active is None:
         active = torch.ones(coord.shape[0], dtype=torch.bool,
                             device=coord.device)
-    if _use_fan(use_fan, coord):
+    if view_group is None and _use_fan(use_fan, coord):
         return _refine_patches_fan(cams, pyr, level, wsize, prob, coord,
                                    normal, num_iters, active,
                                    with_ncc=with_ncc)
@@ -382,7 +408,8 @@ def refine_patches(cams: CameraSet, pyr: PyramidSet, level: int, wsize: int,
 
     def residuals(pp, pr):
         f, incc, pair_ok = incc_objective(cams, pyr, level, wsize, pr, pp,
-                                          use_fan=False)
+                                          use_fan=False,
+                                          view_group=view_group)
         return f, _residuals(incc, pair_ok)
 
     f, r = residuals(p, prob)
@@ -402,6 +429,11 @@ def refine_patches(cams: CameraSet, pyr: PyramidSet, level: int, wsize: int,
                          for k in range(3)], dim=-1)            # [B, T, 3]
         JtJ = J.transpose(1, 2) @ J
         Jtr = (J * r[..., None]).sum(1)
+        if view_group is not None:
+            # reference refine.py:539-541: psum of the normal equations
+            both = _all_reduce(torch.cat([JtJ, Jtr[..., None]], -1),
+                               view_group)
+            JtJ, Jtr = both[..., :3], both[..., 3]
         damped = JtJ + (lam + 1e-9)[:, None, None] * eye
         delta = _solve3x3(damped, -Jtr).clamp(-4.0, 4.0)
         p_new = _clip_angles(p + delta)
@@ -416,20 +448,26 @@ def refine_patches(cams: CameraSet, pyr: PyramidSet, level: int, wsize: int,
     new_coord = torch.where(active[:, None], new_coord, coord)
     new_normal = torch.where(active[:, None], new_normal, normal)
     ncc = compute_weighted_incc(cams, pyr, level, wsize, prob, new_coord,
-                                new_normal, use_fan=False) \
+                                new_normal, use_fan=False,
+                                view_group=view_group) \
         if with_ncc else None
     return new_coord, new_normal, ncc, f
 
 
 def compute_weighted_incc(cams, pyr, level, wsize, prob: RefineProblem,
-                          coord, normal, use_fan: bool | None = None):
+                          coord, normal, use_fan: bool | None = None,
+                          view_group=None):
     """patch._ncc = 1 - unrobustincc(weighted robust INCC)
-    (optim.cpp:652 + computeINCC :875-938)."""
+    (optim.cpp:652 + computeINCC :875-938); with `view_group` the
+    weighted sums are summed over the group's view shards."""
     incc, ref_ok, pair_ok = per_view_inccs(cams, pyr, level, wsize, prob,
                                            coord, normal, use_fan)
     w = torch.where(pair_ok, prob.weights, torch.zeros_like(incc))
     total = w.sum(-1)
     num = (incc * w).sum(-1)
+    if view_group is not None:
+        # reference refine.py:583-585
+        total, num = _all_reduce(torch.stack([total, num]), view_group)
     zero = total == 0.0
     score = num / torch.where(zero, torch.ones_like(total), total)
     score = torch.where(zero | (~ref_ok), torch.full_like(score, 2.0), score)

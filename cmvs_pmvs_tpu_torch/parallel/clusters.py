@@ -82,11 +82,13 @@ def run_clusters(prefix: str, names: list[str] | None = None,
                  process_count: int | None = None,
                  p_cap: int = 200_000, log=print, checkpoint: bool = False,
                  device="cuda", **run_kwargs) -> list[ClusterRun]:
-    """Reconstruct this process's share of the clusters on `device`
-    (cuda unless the caller asks for cpu). Replaces `sh pmvs.sh` (one
-    OS process per line) with one scheduler per process. Returns a
-    ClusterRun per assigned cluster."""
+    """Reconstruct this process's share of the clusters on its rank's
+    device (comm.rank_device: cuda:LOCAL_RANK unless the caller names a
+    CUDA index or asks for cpu). Replaces `sh pmvs.sh` (one OS process
+    per line) with one scheduler per process. Returns a ClusterRun per
+    assigned cluster."""
     from ..models import engine
+    from .comm import rank_device
 
     if process_index is None or process_count is None:
         process_index, process_count = process_topology()
@@ -103,7 +105,7 @@ def run_clusters(prefix: str, names: list[str] | None = None,
         log(f"[{name}] reconstructing on process "
             f"{process_index}/{process_count}")
         eng = engine.reconstruct(prefix, name, p_cap=p_cap, log=log,
-                                 device=device, **run_kwargs)
+                                 device=rank_device(device), **run_kwargs)
         run = ClusterRun(name=name, patches=int(eng.cloud.count()),
                          seconds=time.time() - t0, stats=eng.stats)
         if checkpoint:

@@ -132,7 +132,8 @@ def test_run_clusters_resume_skip(tmp_path, monkeypatch):
         f.write("1 0\n")
     runs = run_clusters(root, process_index=0, process_count=1,
                         checkpoint=True, device="cpu", **QUIET)
-    assert ran == [(names[0], "cpu"), (names[2], "cpu")]
+    cpu = torch.device("cpu")    # the rank's device (comm.rank_device)
+    assert ran == [(names[0], cpu), (names[2], cpu)]
     assert [r.skipped for r in runs] == [False, True, False]
     assert runs[0].patches == 7
     # all done markers now exist -> second invocation runs nothing
