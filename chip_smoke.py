@@ -89,14 +89,34 @@ raises on failure (the script then exits non-zero):
    ranks. (d) scripts/scaling_curve's curve at 1, 2 and 4 ranks (logged,
    no bar: on one card it is overhead, not scaling). Each run's kernel
    launches are summed over its ranks into the kernels line.
+13. The image variants. (a) The float32 K1 and K3 (phases 3 and 6's
+   shapes, fan 4 and 1) and K2 and K4 (phases 4 and 7's) on the plane
+   scene's pyramid gamma-decoded at 2.2, and (b) the unblocked K2 and K4
+   on its byte and its gamma pyramid, each against its plain version
+   (bar 1e-4; K1/K3 on valid pairs), timed beside its bound (a float32
+   tap pixel counts 12 bytes); the unblocked ones also with their taps
+   moved 15 px right, past their block (that rule's own path, which the
+   reference's geometry never takes). (c) Phase 5's protocol on the gamma
+   pyramid: only the float32 K1 and K2 launch, phase 5's bars, the
+   count and seconds logged beside phase 5's, the launches replayed.
+   Then at expand_iters=1, beside a default run at that depth (counts
+   logged as a ratio to it): (d) the gamma pyramid with USE_FAN_V2 =
+   False (float32 K3) and with USE_FAN = False (float32 K4); (e)
+   texture._USE_BLOCK_SAMPLING = False with USE_FAN = False on both
+   pyramids (the unblocked K2 and K4); (f) texture.SAMPLING = "bicubic"
+   (no K1-K4 launch, the cloud on the card). Each run launches exactly
+   its instantiations, meets phase 5's accuracy bars and at least half
+   the default depth-1 count; every switch is restored after each run.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
 overlaps the spin and the events time the device's work. Every kernel's
 launch counter is set to 0 just before each protocol run and before the
 ablation sweeps, and read just after; replays and comparisons do not
-count. The line before the last is a JSON object with each kernel's
-launches (in the run whose path it serves, and per run), error, times,
+count. The line before the last is a JSON object with each kernel
+instantiation's (K1-K4 for uint8 and float32 atlases, K2 and K4 also
+unblocked; ops/kernels.ENTRIES) launches (in the run whose path it
+serves, and per run), error, times,
 and its bound: the larger of its compulsory bytes over the H100's 3.35
 TB/s and its float32 operations over the 67 TFLOP/s non-tensor peak,
 counted from this run's inputs. K2 and K4 read a pair's positions and taps only where its window
@@ -110,6 +130,7 @@ jax and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -139,6 +160,19 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 FLOPS_PER_SAMPLE = {"incc_fan": 63, "incc_fan_v1": 65, "windows": 46,
                     "incc_blocks": 52, "incc_fan_abl": 70, "interp_abl": 37,
                     "moments_abl": 60}
+# The float32 and unblocked instantiations of K1-K4 do the same float32
+# operations a sample (a float tap needs no conversion, an unblocked one
+# no mask; neither is counted above).
+GAMMA = 2.2
+# Phase 13(b) moves the unblocked K2/K4's taps this far right: past their
+# 20-px block from anywhere but its first 5 px (moved_inputs).
+MOVE_PX = 15.0
+
+
+def base_name(name: str) -> str:
+    """The kernel of an instantiation name: windows_unblocked_f32 ->
+    windows, incc_fan_v1_f32 -> incc_fan_v1."""
+    return name.removesuffix("_f32").removesuffix("_unblocked")
 
 
 def log(msg: str):
@@ -160,7 +194,8 @@ def phase_device():
 def kernel_registers(report: str) -> list:
     """(kernel, registers, spilled bytes) of each kernel in nvcc's
     `-Xptxas -v` output, in its order; a kernel named by its unmangled
-    name and template arguments, e.g. windows_kernel<2>."""
+    name and template arguments, e.g. windows_kernel<2, 1, u8> (a pixel
+    type argument as u8 or f32)."""
     import re
     out, entry, props, spill = [], None, None, 0
     for line in report.splitlines():
@@ -175,10 +210,12 @@ def kernel_registers(report: str) -> list:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            k = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", entry)
+            k = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E|[hf])+)E",
+                          entry)
             name = (k.group(1) + "<" + ", ".join(
-                re.findall(r"L[a-z](\d+)E", k.group(2))) + ">") if k \
-                else entry
+                num or {"h": "u8", "f": "f32"}[typ] for num, typ in
+                re.findall(r"L[a-z](\d+)E|([hf])", k.group(2))) + ">") \
+                if k else entry
             out.append((name, int(m.group(1)), spill))
             entry = None
     return out
@@ -325,8 +362,8 @@ def abl_turns(label: str, this, theirs) -> dict:
 
 
 def raw_launch(other, name: str):
-    """A launcher of kernel `name` of the library `other` that takes the
-    wrapper's arguments."""
+    """A launcher of kernel `name` (its uint8 blocked instantiation) of
+    the library `other` that takes the wrapper's arguments."""
     if name in ("incc_fan", "incc_fan_v1"):
         return lambda *args, **kwargs: raw_fan(other, *args)
     return lambda *args, **kwargs: raw_block(other, name, *args, **kwargs)
@@ -349,41 +386,55 @@ def turns_text(r: dict) -> str:
 
 
 def atlas_bytes(atlas, n, y, x) -> int:
-    """Bytes of the distinct atlas pixels that the taps (n, y, x) read."""
+    """Bytes of the distinct atlas pixels that the taps (n, y, x) read:
+    3 a pixel on a uint8 atlas, 12 on a float32 (gamma) one."""
     import torch
     _, h, wa, c = atlas.shape
     flat = (n.long() * h + y.long().clamp(0, h - 1)) * wa \
         + x.long().clamp(0, wa - 1)
-    return int(torch.unique(flat.flatten()).numel()) * c
+    return int(torch.unique(flat.flatten()).numel()) * c \
+        * atlas.element_size()
 
 
 def bound(name: str, samples: int, nbytes: int) -> dict:
-    """The least time the H100 could take: compulsory bytes over HBM
-    bandwidth vs float32 operations over the non-tensor peak."""
+    """The least time the H100 could take: compulsory bytes (counted with
+    the atlas's element size by atlas_bytes) over HBM bandwidth vs
+    float32 operations over the non-tensor peak; `name` a kernel or one
+    of its instantiations."""
+    flops = samples * FLOPS_PER_SAMPLE[base_name(name)]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = samples * FLOPS_PER_SAMPLE[name] / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": samples * FLOPS_PER_SAMPLE[name]}
+            "bytes": nbytes, "flops": flops}
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def plane_batch(num_cameras: int, dev):
+@functools.lru_cache(maxsize=None)
+def plane_scene(num_cameras: int):
+    """The kernel bench's 640x480 plane scene (rendered once for each
+    camera count: 12 views take ~5 s of host time)."""
+    from cmvs_pmvs_tpu_torch.utils.synthetic import make_plane_scene
+    return make_plane_scene(num_cameras=num_cameras, width=640, height=480,
+                            focal=800.0)
+
+
+def plane_batch(num_cameras: int, dev, gamma=None):
     """The kernel bench's geometry: 640x480 plane scene, BATCH patches on
-    the plane seen from camera 0, perturbed along the ray by +-2 dscale."""
+    the plane seen from camera 0, perturbed along the ray by +-2 dscale;
+    with `gamma`, the scene's pyramid gamma-decoded (float32 atlas)."""
     import torch
     from cmvs_pmvs_tpu_torch.geom import build_camera_set
     from cmvs_pmvs_tpu_torch.image import build_pyramids
     from cmvs_pmvs_tpu_torch.ops.refine import set_scales
-    from cmvs_pmvs_tpu_torch.utils.synthetic import make_plane_scene
 
-    scene = make_plane_scene(num_cameras=num_cameras, width=640, height=480,
-                             focal=800.0)
+    scene = plane_scene(num_cameras)
     cams = build_camera_set(scene.P, device=dev)
-    pyr = build_pyramids(list(scene.images), None, 3, device=dev)
+    pyr = build_pyramids(list(scene.images), None, 3, device=dev,
+                         gamma=gamma)
     rng = np.random.default_rng(0)
     C, P = scene.centers[0], scene.P[0]
     us = rng.uniform(120, 520, BATCH)
@@ -410,13 +461,14 @@ def plane_batch(num_cameras: int, dev):
     return cams, pyr, coord, normal, views, valid, dscale
 
 
-def fan_inputs(dev):
+def fan_inputs(dev, gamma=None):
     """grab_frames outputs at the LM's probe stacks, fan 4 and fan 1."""
     import torch
     from cmvs_pmvs_tpu_torch.ops.fan import grab_frames
     from cmvs_pmvs_tpu_torch.ops.refine import (FAN_H, decode_params,
                                                 encode_params, make_problem)
-    cams, pyr, coord, normal, views, valid, dscale = plane_batch(6, dev)
+    cams, pyr, coord, normal, views, valid, dscale = plane_batch(6, dev,
+                                                                 gamma)
     prob = make_problem(cams, 0, coord, normal, views, valid, dscale, 3)
     p0 = encode_params(cams, prob, coord, normal)
     out = {}
@@ -479,7 +531,7 @@ def phase_k1(pyr, inputs, other=None):
     from cmvs_pmvs_tpu_torch.ops import fan2
     out = {}
     for fan, (vid, _, frames, ok) in inputs.items():
-        args = (pyr.atlas_u8, vid, frames, ok, 7)
+        args = (pyr.atlas_k, vid, frames, ok, 7)
         got = fan2.incc_fan(*args)
         want = fan2.incc_fan_plain(*args)
         torch.cuda.synchronize()
@@ -492,7 +544,7 @@ def phase_k1(pyr, inputs, other=None):
         plain_ms = timed(lambda: fan2.incc_fan_plain(*args))
         b = bound("incc_fan", frames.shape[:3].numel() * 49,
                   nbytes(vid, frames, ok, got)
-                  + fan_atlas_bytes(pyr.atlas_u8, vid, frames, ok))
+                  + fan_atlas_bytes(pyr.atlas_k, vid, frames, ok))
         log(f"K1 fan={fan}: B={BATCH} T=6 valid pairs "
             f"{float(pair.float().mean()):.4f} max|diff| {err:.3e} "
             + against + f"{turns_text(turns)}, with host {host_ms:.4f} "
@@ -511,10 +563,10 @@ def phase_k3(pyr, inputs, other=None):
     from cmvs_pmvs_tpu_torch.ops import fan, fan2
     out = {}
     for nfan, (vid, org, frames, ok) in inputs.items():
-        args = (pyr.atlas_u8, vid, org, frames, ok, 7)
+        args = (pyr.atlas_k, vid, org, frames, ok, 7)
         got = fan.incc_fan_v1(*args)
         want = fan.incc_fan_v1_plain(*args)
-        k1 = fan2.incc_fan(pyr.atlas_u8, vid, frames, ok, 7)
+        k1 = fan2.incc_fan(pyr.atlas_k, vid, frames, ok, 7)
         stats = {}
         fan.count_clipped(stats, org, frames, ok, 7)
         torch.cuda.synchronize()
@@ -526,11 +578,11 @@ def phase_k3(pyr, inputs, other=None):
             lambda: raw_fan(other, *args)))
         host_ms = call_ms(lambda: fan.incc_fan_v1(*args))
         plain_ms = timed(lambda: fan.incc_fan_v1_plain(*args))
-        k1_ms = timed(lambda: fan2.incc_fan(pyr.atlas_u8, vid, frames, ok,
+        k1_ms = timed(lambda: fan2.incc_fan(pyr.atlas_k, vid, frames, ok,
                                             7))
         b = bound("incc_fan_v1", frames.shape[:3].numel() * 49,
                   nbytes(vid, org, frames, ok, got)
-                  + fan_atlas_bytes(pyr.atlas_u8, vid, frames, ok, org))
+                  + fan_atlas_bytes(pyr.atlas_k, vid, frames, ok, org))
         log(f"K3 fan={nfan}: B={BATCH} T=6 max|diff| {err:.3e} "
             + against + f"{turns_text(turns)}, with host {host_ms:.4f} "
             f"ms; plain "
@@ -546,34 +598,39 @@ def phase_k3(pyr, inputs, other=None):
     return out
 
 
-def block_inputs(num_views: int, dev):
+def block_inputs(num_views: int, dev, gamma=None):
     from cmvs_pmvs_tpu_torch.ops.refine import _patch_axes
     from cmvs_pmvs_tpu_torch.ops.texture import grab_block_geometry
-    cams, pyr, coord, normal, views, valid, _ = plane_batch(num_views, dev)
+    cams, pyr, coord, normal, views, valid, _ = plane_batch(num_views, dev,
+                                                            gamma)
     px, py = _patch_axes(cams, 0, views[:, 0].long(), coord, normal)
     starts, relx, rely, ok = grab_block_geometry(
         cams, pyr, 0, 7, coord, px, py, normal, views, valid)
-    return pyr, (pyr.atlas_u8, starts, relx, rely, ok.reshape(-1))
+    return pyr, (pyr.atlas_k, starts, relx, rely, ok.reshape(-1))
 
 
-def block_atlas_bytes(atlas, starts, relx, rely, ok) -> int:
-    """Bytes of the distinct atlas pixels that the taps inside their
-    block read, over the pairs with `ok`; block starts clamped into the
-    atlas as the kernels clamp them."""
+def block_atlas_bytes(atlas, starts, relx, rely, ok,
+                      blocked: bool = True) -> int:
+    """Bytes of the distinct atlas pixels that the taps read, over the
+    pairs with `ok`: blocked, the taps inside their block, block starts
+    clamped into the atlas as the kernels clamp them; unblocked, every
+    tap (clamped into the atlas plane by atlas_bytes)."""
     import torch
     from cmvs_pmvs_tpu_torch.ops.texture import BLOCK_K
     num, h, wa, _ = atlas.shape
     fx, fy = torch.floor(relx).long(), torch.floor(rely).long()
     keep = ok[:, None].expand_as(fx)
     n = starts[:, 0:1].long().clamp(0, num - 1).expand_as(fx)[keep]
-    sy = starts[:, 1:2].long().clamp(0, max(h - BLOCK_K, 0)) \
-        .expand_as(fx)[keep]
-    sx = starts[:, 2:3].long().clamp(0, max(wa - BLOCK_K, 0)) \
-        .expand_as(fx)[keep]
+    sy, sx = starts[:, 1:2].long(), starts[:, 2:3].long()
+    if blocked:
+        sy = sy.clamp(0, max(h - BLOCK_K, 0))
+        sx = sx.clamp(0, max(wa - BLOCK_K, 0))
+    sy, sx = sy.expand_as(fx)[keep], sx.expand_as(fx)[keep]
     fx, fy = fx[keep], fy[keep]
     taps = [(dx, dy) for dx in (0, 1) for dy in (0, 1)]
     inside = [(fx + dx >= 0) & (fx + dx < BLOCK_K) & (fy + dy >= 0)
-              & (fy + dy < BLOCK_K) for dx, dy in taps]
+              & (fy + dy < BLOCK_K) if blocked
+              else torch.ones_like(fx, dtype=torch.bool) for dx, dy in taps]
     return atlas_bytes(
         atlas, torch.cat([n[m] for m in inside]),
         torch.cat([(sy + fy + dy)[m] for (_, dy), m in zip(taps, inside)]),
@@ -584,14 +641,14 @@ def block_need(name: str, ok, t: int):
     """The pairs whose window K2 ("windows") or K4 ("incc_blocks") must
     read: K2's ok pairs; K4's ok pairs of patches whose view 0 is ok (the
     other outputs are 2.0 whatever the windows hold)."""
-    if name == "windows":
+    if base_name(name) == "windows":
         return ok
     okb = ok.reshape(-1, t)
     return (okb & okb[:, 0:1]).reshape(-1)
 
 
 def block_bytes(name: str, atlas, starts, relx, rely, ok, t: int,
-                old: bool = False) -> int:
+                old: bool = False, blocked: bool = True) -> int:
     """Compulsory bytes of one K2 or K4 call: every pair's `starts`, `ok`
     and output (a failed pair still writes its zeros or its 2.0), and for
     the pairs of `block_need` their relx/rely and the distinct atlas
@@ -600,9 +657,9 @@ def block_bytes(name: str, atlas, starts, relx, rely, ok, t: int,
     bt, s2 = relx.shape
     need = ok if old else block_need(name, ok, t)
     rel = relx.numel() * 2 if old else 2 * s2 * int(need.sum())
-    out = bt * s2 * 3 if name == "windows" else bt
+    out = bt * s2 * 3 if base_name(name) == "windows" else bt
     return nbytes(starts, ok) + 4 * (rel + out) \
-        + block_atlas_bytes(atlas, starts, relx, rely, need)
+        + block_atlas_bytes(atlas, starts, relx, rely, need, blocked)
 
 
 def phase_block(name: str, dev, other=None) -> dict:
@@ -842,25 +899,44 @@ def phase_ablation(dev, other=None) -> dict:
 
 
 def kernel_wrappers():
+    """Every kernel instantiation's launch counter by name: K1-K4 one per
+    instantiation (ops/kernels.Entry: incc_fan, incc_fan_f32, ...,
+    windows_unblocked_f32), K5-K7 their wrappers."""
     from cmvs_pmvs_tpu_torch.ops.ablate import (incc_fan_abl, interp_abl,
                                                 moments_abl)
+    return {**atlas_entries(), "incc_fan_abl": incc_fan_abl,
+            "interp_abl": interp_abl, "moments_abl": moments_abl}
+
+
+def atlas_entries() -> dict:
+    """Every K1-K4 instantiation's Entry by name (ops/kernels.ENTRIES,
+    which the four wrapper modules fill when they are imported)."""
+    from cmvs_pmvs_tpu_torch.ops import fan, fan2, incc, windows  # noqa
+    from cmvs_pmvs_tpu_torch.ops.kernels import ENTRIES
+    return dict(ENTRIES)
+
+
+def launcher(name: str):
+    """The wrapper that launches the K1-K4 instantiation `name` (it picks
+    the instantiation from its arguments)."""
     from cmvs_pmvs_tpu_torch.ops.fan import incc_fan_v1
     from cmvs_pmvs_tpu_torch.ops.fan2 import incc_fan
     from cmvs_pmvs_tpu_torch.ops.incc import incc_blocks
     from cmvs_pmvs_tpu_torch.ops.windows import windows
-    return {"incc_fan": incc_fan, "windows": windows,
-            "incc_fan_v1": incc_fan_v1, "incc_blocks": incc_blocks,
-            "incc_fan_abl": incc_fan_abl, "interp_abl": interp_abl,
-            "moments_abl": moments_abl}
+    return {"incc_fan": incc_fan, "incc_fan_v1": incc_fan_v1,
+            "windows": windows, "incc_blocks": incc_blocks}[base_name(name)]
 
 
-def write_scene(name: str = "chip_smoke_scene") -> tuple:
+def write_scene(name: str = "chip_smoke_scene", scene=None) -> tuple:
+    """The protocol scene (rendered, or `scene` again) as a PMVS tree
+    under build/<name>."""
     from cmvs_pmvs_tpu_torch.utils.synthetic import (make_occluded_scene,
                                                      write_pmvs_tree)
     root = os.path.join(ROOT, "build", name)
     shutil.rmtree(root, ignore_errors=True)
-    scene = make_occluded_scene(num_cameras=12, width=640, height=480,
-                                focal=700.0)
+    if scene is None:
+        scene = make_occluded_scene(num_cameras=12, width=640, height=480,
+                                    focal=700.0)
     write_pmvs_tree(scene, root, mask_border=8)
     with open(os.path.join(root, "option.txt"), "w") as f:
         f.write("level 0\ncsize 2\nthreshold 0.7\nwsize 7\nminImageNum 3\n"
@@ -869,43 +945,86 @@ def write_scene(name: str = "chip_smoke_scene") -> tuple:
     return scene, root
 
 
+def loaded_scenes(root: str, dev) -> dict:
+    """The scene at `root` as the engine loads it (options, SceneData),
+    and the same with its pyramid's atlas gamma-decoded at GAMMA
+    (build_pyramids(gamma=)): the way the JAX package reaches
+    FURUKAWA_IMAGE_GAMMA. Masks and edge maps do not depend on the
+    pixels' encoding and are the loaded pyramid's."""
+    from dataclasses import replace
+    from cmvs_pmvs_tpu_torch.image import build_pyramids
+    from cmvs_pmvs_tpu_torch.models.engine import load_scene
+    from cmvs_pmvs_tpu_torch.utils.options import PMVSOptions
+    opt = PMVSOptions.parse(os.path.join(root, "option.txt"))
+    scene = load_scene(root, opt, device=dev)
+    g = build_pyramids(scene.images, None, scene.pyr.num_levels, device=dev,
+                       gamma=GAMMA)
+    return {"byte": (opt, scene), "gamma": (opt, replace(scene, pyr=replace(
+        scene.pyr, atlas=g.atlas, atlas_k=g.atlas_k, byte_valued=False)))}
+
+
 def phase_protocol(dev, scene, root, label: str, flags: dict,
-                   need: tuple, absent: tuple = ()):
-    """One full-protocol run with the refine module's `flags` set (and
-    restored after): every kernel counter zeroed just before, read just
-    after; the kernels in `need` must have launched, those in `absent`
-    must not. Returns the launches and the captured launch arguments of
-    K1-K4."""
+                   need: tuple, absent: tuple = (), texture_flags=None,
+                   loaded=None, expand_iters: int = 3,
+                   min_patches: int = 80_000, outputs: bool = True) -> dict:
+    """One full-protocol run with the refine module's `flags` and the
+    texture module's `texture_flags` set (and restored after): through
+    `reconstruct` (the scene loaded from `root`), or on `loaded`, an
+    (options, SceneData) pair of `loaded_scenes`, through PMVSEngine.
+    Every kernel counter is zeroed just before, read just after; the
+    instantiations in `need` must have launched, those in `absent` must
+    not. Bars: at least `min_patches` patches, surface distance / dscale
+    median < 0.4 and q90 < 1.5, the cloud on the card, and (outputs) the
+    written files read back. Returns the launches, the captured launch
+    arguments of K1-K4 by instantiation, the count and the run's
+    seconds."""
     import torch
     from cmvs_pmvs_tpu_torch.io.patches import read_patch_file, read_pset
     from cmvs_pmvs_tpu_torch.io.ply import read_ply_xyz
-    from cmvs_pmvs_tpu_torch.models.engine import reconstruct
-    from cmvs_pmvs_tpu_torch.ops import refine
+    from cmvs_pmvs_tpu_torch.models.engine import PMVSEngine, reconstruct
+    from cmvs_pmvs_tpu_torch.ops import refine, texture
     from cmvs_pmvs_tpu_torch.ops.fan import incc_fan_v1
     from cmvs_pmvs_tpu_torch.ops.windows import windows
 
+    texture_flags = texture_flags or {}
     wrappers = kernel_wrappers()
     saved = {k: getattr(refine, k) for k in flags}
-    for k, v in flags.items():
-        setattr(refine, k, v)
-    windows.clip_stats = {}
-    incc_fan_v1.clip_stats = {}
-    kept = ("incc_fan", "incc_fan_v1", "windows", "incc_blocks")
-    for k in kept:
-        wrappers[k].capture = []
-    for w in wrappers.values():
-        w.launches = 0
+    saved_tex = {k: getattr(texture, k) for k in texture_flags}
+    kept = tuple(atlas_entries())
+    run = dict(log=lambda m: None, expand_iters=expand_iters, max_waves=12,
+               refine_iters=8)
     try:
+        for k, v in flags.items():
+            setattr(refine, k, v)
+        for k, v in texture_flags.items():
+            setattr(texture, k, v)
+        windows.clip_stats = {}
+        incc_fan_v1.clip_stats = {}
+        for k in kept:
+            wrappers[k].capture = []
+        for w in wrappers.values():
+            w.launches = 0
         t0 = time.time()
-        eng = reconstruct(root, "option.txt", p_cap=200_000, device=dev,
-                          log=lambda m: None, expand_iters=3, max_waves=12,
-                          refine_iters=8)
+        if loaded is not None:
+            opt, data = loaded
+            eng = PMVSEngine(data, opt, p_cap=200_000, log=run.pop("log"),
+                             device=dev)
+            eng.run(**run)
+            if outputs:
+                out = os.path.join(root, "models", "option.txt")
+                os.makedirs(os.path.dirname(out), exist_ok=True)
+                eng.write(out)
+        else:
+            eng = reconstruct(root, "option.txt", p_cap=200_000, device=dev,
+                              **run)
         torch.cuda.synchronize()
         total = time.time() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
     finally:
         for k, v in saved.items():
             setattr(refine, k, v)
+        for k, v in saved_tex.items():
+            setattr(texture, k, v)
         calls = {k: wrappers[k].capture for k in kept}
         for k in kept:
             wrappers[k].capture = None
@@ -916,15 +1035,20 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
 
     alive = eng.cloud.alive.cpu().numpy()
     n = int(alive.sum())
+    on_cuda = eng.cloud.coord.is_cuda and eng.cloud.alive.is_cuda
     coord = eng.cloud.coord.cpu().numpy()[alive][:, :3]
     dscale = eng.cloud.dscale.cpu().numpy()[alive]
     d = scene.surface_distance(coord) / dscale
     med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
     phases = {k: round(v.seconds, 3) for k, v in eng.tracer.spans.items()}
-    log(f"protocol[{label}] {flags}: {n} patches, surface distance / "
-        f"dscale median {med:.4f} q90 {q90:.4f}, total {total:.2f} s, "
-        f"phases {phases}")
-    log(f"protocol[{label}]: kernel launches {launches}; windows pairs "
+    gamma = loaded is not None and not loaded[1].pyr.byte_valued
+    setting = {**flags, **texture_flags, **({"gamma": GAMMA} if gamma
+                                            else {})}
+    log(f"protocol[{label}] {setting} expand_iters {expand_iters}: {n} "
+        f"patches, surface distance / dscale median {med:.4f} q90 "
+        f"{q90:.4f}, total {total:.2f} s, phases {phases}")
+    log(f"protocol[{label}]: kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }; windows pairs "
         f"with a tap outside the 20-px block: {clip.get('clipped', 0)} of "
         f"{clip.get('pairs', 0)} ok pairs; K3 probes outside their "
         f"probe-0 tile: {clip_v1.get('clipped', 0)} of "
@@ -934,11 +1058,17 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
                              f"launched: {launches}")
     if any(launches[k] != 0 for k in absent):
         raise AssertionError(f"{label}: {absent} launched: {launches}")
-    if n < 80_000:
-        raise AssertionError(f"{label}: too few patches: {n} < 80000")
+    if not on_cuda:
+        raise AssertionError(f"{label}: the cloud left the card")
+    if n < min_patches:
+        raise AssertionError(f"{label}: too few patches: {n} < "
+                             f"{min_patches}")
     if not (med < 0.4 and q90 < 1.5):
         raise AssertionError(f"{label}: accuracy bars missed: median "
                              f"{med}, q90 {q90}")
+    if not outputs:
+        return {"launches": launches, "calls": calls, "n": n,
+                "seconds": total, "median": med, "q90": q90}
     base = os.path.join(root, "models", "option.txt")
     counts = {"patch": len(read_patch_file(base + ".patch")),
               "ply": len(read_ply_xyz(base + ".ply")),
@@ -946,7 +1076,8 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     if any(c != n for c in counts.values()):
         raise AssertionError(f"{label}: output counts {counts} != {n}")
     log(f"protocol[{label}]: outputs read back {counts}")
-    return launches, calls, n
+    return {"launches": launches, "calls": calls, "n": n, "seconds": total,
+            "median": med, "q90": q90}
 
 
 def replay(calls, launch) -> dict:
@@ -977,7 +1108,7 @@ def call_bound(name: str, args: tuple, kwargs: dict) -> dict:
     """`bound` of one captured call, counted from its own inputs; for K2
     and K4 also the earlier count ("old_bytes", "old_bound_ms")."""
     atlas = args[0]
-    if name in ("incc_fan", "incc_fan_v1"):
+    if base_name(name) in ("incc_fan", "incc_fan_v1"):
         vid, *org, frames, ok, wsize = args[1:]
         pairs = frames.shape[:3].numel()
         return bound(name, pairs * wsize * wsize,
@@ -985,10 +1116,12 @@ def call_bound(name: str, args: tuple, kwargs: dict) -> dict:
                      + fan_atlas_bytes(atlas, vid, frames, ok,
                                        org[0] if org else None, wsize))
     relx, ok, t = args[2], args[4], kwargs["t"]
+    blocked = kwargs.get("blocked", True)
     need = int(block_need(name, ok, t).sum())
-    old = bound(name, relx.numel(), block_bytes(name, *args, t=t, old=True))
+    old = bound(name, relx.numel(), block_bytes(name, *args, t=t, old=True,
+                                                blocked=blocked))
     return {**bound(name, need * relx.shape[1],
-                    block_bytes(name, *args, t=t)),
+                    block_bytes(name, *args, t=t, blocked=blocked)),
             "old_bytes": old["bytes"], "old_bound_ms": old["bound_ms"]}
 
 
@@ -999,8 +1132,8 @@ def protocol_kernel_time(label: str, name: str, calls: list, other=None):
     kernel on the same arguments, whose outputs must agree with this
     tree's within TOL (fan kernels: on valid pairs)."""
     import torch
-    wrapper = kernel_wrappers()[name]
-    fan_kernel = name in ("incc_fan", "incc_fan_v1")
+    wrapper = launcher(name)
+    fan_kernel = base_name(name) in ("incc_fan", "incc_fan_v1")
     if other is None:
         runs = [replay(calls, wrapper)]
     else:
@@ -1400,6 +1533,199 @@ def phase_multi_rank(dev, n_default: int, launches_default: dict,
     return runs
 
 
+VARIANT_ROWS = (
+    # (instantiation, source, replaces, the phase-13 run whose path it is)
+    ("incc_fan_f32", "fan2.cu", "cmvs_pmvs_tpu/ops/pallas_fan2.py:115",
+     "gamma"),
+    ("windows_f32", "windows.cu", "cmvs_pmvs_tpu/ops/pallas_incc.py:81",
+     "gamma"),
+    ("incc_fan_v1_f32", "fan.cu", "cmvs_pmvs_tpu/ops/pallas_fan.py:107",
+     "gamma_fan_v1"),
+    ("incc_blocks_f32", "incc.cu", "cmvs_pmvs_tpu/ops/pallas_incc.py:32",
+     "gamma_central"),
+    ("windows_unblocked", "windows.cu",
+     "cmvs_pmvs_tpu/ops/pallas_incc.py:81", "unblocked"),
+    ("incc_blocks_unblocked", "incc.cu",
+     "cmvs_pmvs_tpu/ops/pallas_incc.py:32", "unblocked"),
+    ("windows_unblocked_f32", "windows.cu",
+     "cmvs_pmvs_tpu/ops/pallas_incc.py:81", "gamma_unblocked"),
+    ("incc_blocks_unblocked_f32", "incc.cu",
+     "cmvs_pmvs_tpu/ops/pallas_incc.py:32", "gamma_unblocked"),
+)
+
+
+def variant_check(name: str, kernel, plain, args, kwargs, pair=None):
+    """One instantiation against its plain version (bar TOL, on `pair`
+    where given), timed with `timed` beside its bound."""
+    import torch
+    got = kernel(*args, **kwargs)
+    want = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float((diff[pair] if pair is not None else diff).max())
+    ms = timed(lambda: kernel(*args, **kwargs))
+    plain_ms = timed(lambda: plain(*args, **kwargs))
+    b = call_bound(name, args, kwargs)
+    log(f"{name}: max|diff| {err:.3e}, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}"
+        f": {b['bytes']} B, {b['flops']} FLOP)")
+    if not err <= TOL:
+        raise AssertionError(f"{name} differs: {err} > {TOL}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+
+
+def phase_variant_kernels(dev) -> dict:
+    """Phase 13 (a, b): the float32 K1 and K3 (phases 3 and 6's shapes,
+    fan 4 and fan 1) and K2 and K4 (phases 4 and 7's) on the plane
+    scene's gamma-decoded pyramid, and the unblocked K2 and K4 on its
+    byte and its gamma pyramid, each against its plain version (bar TOL;
+    K1/K3 on valid pairs), timed beside its bound. The reference's
+    geometry keeps every window inside its block, so the unblocked
+    instantiations take the inner path there, which the two rules share;
+    each is also held to its plain version and timed with the same pairs'
+    taps moved MOVE_PX to the right (`moved_inputs`), where most leave
+    their block: the unblocked rule's own path, every tap read and
+    clamped into the atlas."""
+    from cmvs_pmvs_tpu_torch.ops import fan, fan2, incc, windows
+    res = {}
+    pyr, fan_in = fan_inputs(dev, gamma=GAMMA)
+    for name, kernel, plain in (
+            ("incc_fan_f32", fan2.incc_fan, fan2.incc_fan_plain),
+            ("incc_fan_v1_f32", fan.incc_fan_v1, fan.incc_fan_v1_plain)):
+        by_fan = {}
+        for nfan, (vid, org, frames, ok) in fan_in.items():
+            args = ((pyr.atlas_k, vid, frames, ok, 7) if name ==
+                    "incc_fan_f32" else (pyr.atlas_k, vid, org, frames, ok,
+                                         7))
+            log(f"{name} fan={nfan}:")
+            by_fan[nfan] = variant_check(name, kernel, plain, args, {},
+                                         ok & ok[:, 0:1, :])
+        res[name] = {**by_fan[4], "max_abs_err": max(
+            v["max_abs_err"] for v in by_fan.values())}
+    del pyr, fan_in
+    for kname, t, kernel, plain in (
+            ("windows", 12, windows.windows, windows.windows_plain),
+            ("incc_blocks", 6, incc.incc_blocks, incc.incc_blocks_plain)):
+        for gamma in (GAMMA, None):
+            _, args = block_inputs(t, dev, gamma)
+            for blocked in ((True, False) if gamma else (False,)):
+                name = (kname + ("" if blocked else "_unblocked")
+                        + ("_f32" if gamma else ""))
+                res[name] = variant_check(name, kernel, plain, args,
+                                          {"t": t, "blocked": blocked})
+                if not blocked:
+                    moved, pair = moved_inputs(args, t)
+                    log(f"{name}, taps moved {MOVE_PX} px:")
+                    mv = variant_check(name, kernel, plain, moved,
+                                       {"t": t, "blocked": False}, pair)
+                    res[name]["moved"] = {k: mv[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by")}
+                    res[name]["max_abs_err"] = max(
+                        res[name]["max_abs_err"], mv["max_abs_err"])
+    return res
+
+
+def moved_inputs(args, t: int):
+    """K2/K4 arguments with every tap moved MOVE_PX to the right, and the
+    [B, T] pairs to compare: all but those whose own or whose reference's
+    taps all clamp onto one atlas pixel (a window of rounding noise, whose
+    normalized values are unspecified: ops/texture.normalize_tex). Logs
+    the share of taps that left their block and the pairs left out."""
+    import torch
+    from cmvs_pmvs_tpu_torch.ops.texture import BLOCK_K
+    atlas, starts, relx, rely, ok = args
+    _, h, wa, _ = atlas.shape
+    relx = relx + MOVE_PX
+    x = starts[:, 2:3] + relx
+    y = starts[:, 1:2] + rely
+    one = (((x <= 0) | (x >= wa - 1)).all(1)
+           & ((y <= 0) | (y >= h - 1)).all(1)).reshape(-1, t)
+    pair = ~one & ~one[:, 0:1]
+    outside = ((relx > BLOCK_K - 1) | (rely < 0)
+               | (rely > BLOCK_K - 1))[ok]
+    log(f"moved taps: {float(outside.float().mean()):.4f} of the ok "
+        f"pairs' taps outside their block; {int((~pair).sum())} pairs of "
+        f"{pair.numel()} collapsed onto one pixel, not compared")
+    return (atlas, starts, relx, rely, ok), pair
+
+
+def phase_variants(dev, scene, root, n_default: int,
+                   seconds_default: float, kres: dict) -> dict:
+    """Phase 13 (c-f): the protocol on the variants' paths, every switch
+    restored after each run. (c) The gamma pyramid, full protocol,
+    default configuration: only the float32 K1 and K2 launch; phase 5's
+    bars. Then at expand_iters=1, beside a default run at that depth:
+    (d) gamma with USE_FAN_V2 = False (float32 K3) and with USE_FAN =
+    False (float32 K4); (e) _USE_BLOCK_SAMPLING = False with USE_FAN =
+    False on the byte and the gamma pyramid (the unblocked K2 and K4);
+    (f) SAMPLING = "bicubic": no K1-K4 launch, the cloud stays on the
+    card. The runs at depth 1 are held to phase 5's accuracy bars and to
+    at least half the default run's count, and write no files. The scene
+    is loaded once for all of them (its load is not in their seconds).
+    Each run's launches of its instantiations are replayed for their
+    protocol ms (into `kres`, from the run that VARIANT_ROWS names for
+    each). Returns each run's launches."""
+    names = tuple(atlas_entries())
+    # an instantiation's protocol ms come from the run whose launches its
+    # row reports
+    row_run = {name: run for name, _, _, run in VARIANT_ROWS}
+    runs = {}
+    scenes = loaded_scenes(root, dev)
+
+    def go(label, flags, need, texture_flags=None, gamma=False,
+           expand_iters=1, min_patches=0):
+        r = phase_protocol(dev, scene, root, label, flags, need=need,
+                           absent=tuple(k for k in names if k not in need),
+                           texture_flags=texture_flags,
+                           loaded=scenes["gamma" if gamma else "byte"],
+                           expand_iters=expand_iters,
+                           min_patches=min_patches,
+                           outputs=expand_iters == 3)
+        runs[label] = r["launches"]
+        calls = r.pop("calls")      # the captured tensors: freed here
+        for name in need:
+            if row_run.get(name) == label:
+                kres[name].update(protocol_kernel_time(label, name,
+                                                       calls[name]))
+        return r
+
+    t0 = time.time()
+    g = go("gamma", {}, ("incc_fan_f32", "windows_f32"), gamma=True,
+           expand_iters=3, min_patches=80_000)
+    log(f"protocol[gamma]: {g['n']} patches, {g['n'] / n_default:.4f} of "
+        f"phase 5's {n_default}; {g['seconds']:.2f} s (the scene loaded "
+        f"beforehand) against phase 5's {seconds_default:.2f} s (with its "
+        f"load)")
+    d1 = go("default_1", {}, ("incc_fan", "windows"))
+    floor = d1["n"] // 2
+    depth1 = [
+        go("gamma_fan_v1", {"USE_FAN_V2": False},
+           ("incc_fan_v1_f32", "windows_f32"), gamma=True,
+           min_patches=floor),
+        go("gamma_central", {"USE_FAN": False},
+           ("incc_blocks_f32", "windows_f32"), gamma=True,
+           min_patches=floor),
+        go("unblocked", {"USE_FAN": False},
+           ("incc_blocks_unblocked", "windows_unblocked"),
+           texture_flags={"_USE_BLOCK_SAMPLING": False},
+           min_patches=floor),
+        go("gamma_unblocked", {"USE_FAN": False},
+           ("incc_blocks_unblocked_f32", "windows_unblocked_f32"),
+           texture_flags={"_USE_BLOCK_SAMPLING": False}, gamma=True,
+           min_patches=floor),
+        go("bicubic", {}, (), texture_flags={"SAMPLING": "bicubic"},
+           min_patches=floor)]
+    labels = ("gamma_fan_v1", "gamma_central", "unblocked",
+              "gamma_unblocked", "bicubic")
+    log("variants at expand_iters=1 (count as a ratio to default_1's "
+        f"{d1['n']} in {d1['seconds']:.2f} s): " + ", ".join(
+            f"{lb} {r['n']} ({r['n'] / d1['n']:.4f}) in {r['seconds']:.2f} s"
+            for lb, r in zip(labels, depth1)))
+    log(f"variants: phase 13 protocol runs {time.time() - t0:.2f} s")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -1434,26 +1760,28 @@ def main() -> int:
     k2 = phase_block("windows", dev, other)
     scene, root = write_scene()
     runs = {}
-    runs["default"], calls, n_default = phase_protocol(
-        dev, scene, root, "default", {}, need=("incc_fan", "windows"))
+    r = phase_protocol(dev, scene, root, "default", {},
+                       need=("incc_fan", "windows"))
+    runs["default"], n_default, seconds_default = (r["launches"], r["n"],
+                                                   r["seconds"])
     k1[4].update(protocol_kernel_time("default", "incc_fan",
-                                      calls["incc_fan"], other))
-    k2.update(protocol_kernel_time("default", "windows", calls["windows"],
-                                   other))
+                                      r["calls"]["incc_fan"], other))
+    k2.update(protocol_kernel_time("default", "windows",
+                                   r["calls"]["windows"], other))
     k3 = phase_k3(pyr, fan_in, other)
     k4 = phase_block("incc_blocks", dev, other)
-    runs["fan_v1"], calls, _ = phase_protocol(
-        dev, scene, root, "fan_v1", {"USE_FAN_V2": False},
-        need=("incc_fan_v1", "windows"), absent=("incc_fan",))
+    r = phase_protocol(dev, scene, root, "fan_v1", {"USE_FAN_V2": False},
+                       need=("incc_fan_v1", "windows"), absent=("incc_fan",))
+    runs["fan_v1"] = r["launches"]
     k3[4].update(protocol_kernel_time("fan_v1", "incc_fan_v1",
-                                      calls["incc_fan_v1"], other))
-    runs["central"], calls, _ = phase_protocol(
-        dev, scene, root, "central", {"USE_FAN": False},
-        need=("incc_blocks", "windows"), absent=("incc_fan", "incc_fan_v1"))
+                                      r["calls"]["incc_fan_v1"], other))
+    r = phase_protocol(dev, scene, root, "central", {"USE_FAN": False},
+                       need=("incc_blocks", "windows"),
+                       absent=("incc_fan", "incc_fan_v1"))
+    runs["central"] = r["launches"]
     k4.update(protocol_kernel_time("central", "incc_blocks",
-                                   calls["incc_blocks"], other))
-    del calls
-    shutil.rmtree(root, ignore_errors=True)
+                                   r["calls"]["incc_blocks"], other))
+    del r, pyr, fan_in
     ablation = phase_ablation(dev, other)
     runs["ablation"] = ablation["launches"]
     abl = ablation["results"]
@@ -1462,6 +1790,14 @@ def main() -> int:
     runs["pipeline"] = pipeline["launches"]
     runs.update(phase_multi_rank(dev, n_default, runs["default"], pipeline))
     shutil.rmtree(pipeline["root"], ignore_errors=True)
+    t0 = time.time()
+    variants = phase_variant_kernels(dev)
+    # phase 12b rewrote and removed phase 5's tree: the same scene again
+    _, root = write_scene("chip_smoke_variants", scene)
+    runs.update(phase_variants(dev, scene, root, n_default, seconds_default,
+                               variants))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"variants: phase 13 {time.time() - t0:.2f} s")
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",
@@ -1473,7 +1809,8 @@ def main() -> int:
                 "bound_by": res["bound_by"],
                 "library_ms": res.get("library_ms"),
                 **{k: res[k] for k in ("protocol_ms", "protocol_bound_ms",
-                                       "against_ms", "protocol_against_ms")
+                                       "against_ms", "protocol_against_ms",
+                                       "moved")
                    if k in res}}
 
     print(json.dumps({"kernels": [
@@ -1492,7 +1829,9 @@ def main() -> int:
         row("interp_abl", "ablate.cu", "scripts/ablate_fan2.py:34",
             "ablation", abl["interp_abl"]),
         row("moments_abl", "ablate.cu", "scripts/ablate_fan25.py:35",
-            "ablation", abl["moments_abl"])]}))
+            "ablation", abl["moments_abl"]),
+        *(row(name, source, replaces, run, variants[name])
+          for name, source, replaces, run in VARIANT_ROWS)]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .geom.cameras import CameraSet
-from .image.pyramid import PyramidSet
+from .image.pyramid import PyramidSet, kernel_atlas
 from .models.cmvs import CmvsProblem
 from .models.config import Thresholds
 from .models.grid import GridState
@@ -50,18 +50,18 @@ def camera_set_from_numpy(fields: dict, device="cpu") -> CameraSet:
 
 def pyramid_from_numpy(fields: dict, device="cpu") -> PyramidSet:
     """The reference PyramidSet's fields; its TPU tile copies are dropped
-    and the uint8 kernel copy of the atlas is rebuilt."""
-    if not fields.get("byte_valued", True):
-        raise ValueError("gamma (non-byte) atlases are not ported yet")
+    and the kernels' copy of the atlas is rebuilt (uint8, or the float32
+    atlas itself where `byte_valued` is False: a gamma pyramid)."""
+    byte_valued = bool(fields.get("byte_valued", True))
     atlas = _tensor("atlas", fields["atlas"], device)
     return PyramidSet(
-        atlas=atlas, atlas_u8=atlas.to(torch.uint8),
+        atlas=atlas, atlas_k=kernel_atlas(atlas, byte_valued),
         mask_atlas=_tensor("mask_atlas", fields["mask_atlas"], device),
         edge_atlas=_tensor("edge_atlas", fields["edge_atlas"], device),
         widths=_tensor("widths", fields["widths"], device),
         heights=_tensor("heights", fields["heights"], device),
         xoff=_tensor("xoff", fields["xoff"], device),
-        num_levels=int(fields["num_levels"]))
+        num_levels=int(fields["num_levels"]), byte_valued=byte_valued)
 
 
 def cloud_from_numpy(fields: dict, device="cpu") -> PatchCloud:

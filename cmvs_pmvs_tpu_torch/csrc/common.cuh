@@ -125,6 +125,36 @@ __device__ __forceinline__ void row_pair(const uint8_t* p, bool adjacent,
   pair_rgb(lo, hi, adjacent, a, b);
 }
 
+// The same for a float32 atlas (gamma-decoded pyramids): six scalar
+// loads, none past the two pixels, so no row rule applies (`wide` is
+// ignored). A 12-byte pixel is only 4-byte aligned, so wider loads would
+// need the alignment case analysis row_words does for bytes.
+__device__ __forceinline__ void row_pair(const float* p, bool adjacent,
+                                         bool /*wide*/, float a[3],
+                                         float b[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    a[c] = __ldg(p + c);
+    b[c] = adjacent ? __ldg(p + 3 + c) : a[c];
+  }
+}
+
+// The rows [lo, hi] of plane n whose taps may be read as aligned words:
+// for uint8 atlases not the atlas's first row nor its last (row_words may
+// read up to 7 bytes past a pixel pair), none where WA < 5; for float32
+// atlases every row (row_pair reads no byte past the pair).
+template <typename P>
+__device__ __forceinline__ void word_rows(int n, int N, int H, int WA,
+                                          int& lo, int& hi) {
+  if constexpr (sizeof(P) == 1) {
+    lo = n == 0 ? 1 : 0;
+    hi = WA < 5 ? -1 : (n == N - 1 ? H - 2 : H - 1);
+  } else {
+    lo = 0;
+    hi = H - 1;
+  }
+}
+
 // A warp's view metadata, loaded once: lane j < T holds view j's plane,
 // frame (orgx, orgy, dxx, dxy, dyx, dyy), ok flag and (K3) tile origin.
 struct FanMeta {
@@ -156,30 +186,31 @@ __device__ __forceinline__ FanMeta fan_meta(int N, const int* vid,
 }
 
 // View v of the warp's patch at its probe, handed to every lane by
-// shuffles: its atlas plane, frame, ok flag, the rows [row_lo, row_hi]
-// whose taps may be read as aligned words (not the atlas's first row nor
-// its last, so the words stay inside it) and, for K3, the pair's probe-0
-// tile (origin ox, oy; readable extent tw, th).
-struct FanView {
-  const uint8_t* img;
+// shuffles: its atlas plane (pixels of type P: uint8, or float32 for a
+// gamma-decoded atlas), frame, ok flag, the rows [row_lo, row_hi] whose
+// taps may be read as aligned words (word_rows) and, for K3, the pair's
+// probe-0 tile (origin ox, oy; readable extent tw, th).
+template <typename P>
+struct FanViewT {
+  const P* img;
   float fr[6];
   bool ok;
   int row_lo, row_hi, ox, oy, tw, th;
 };
+using FanView = FanViewT<uint8_t>;
 
-template <bool kV1>
-__device__ __forceinline__ FanView fan_view(const FanMeta& m,
-                                            const uint8_t* atlas, int N,
-                                            int H, int WA, int v) {
+template <bool kV1, typename P>
+__device__ __forceinline__ FanViewT<P> fan_view(const FanMeta& m,
+                                                const P* atlas, int N, int H,
+                                                int WA, int v) {
   constexpr unsigned kAll = 0xffffffffu;
-  FanView fv;
+  FanViewT<P> fv;
   const int n = __shfl_sync(kAll, m.n, v);
   fv.img = atlas + static_cast<long long>(n) * H * WA * 3;
 #pragma unroll
   for (int i = 0; i < 6; ++i) fv.fr[i] = __shfl_sync(kAll, m.fr[i], v);
   fv.ok = __shfl_sync(kAll, static_cast<int>(m.ok), v) != 0;
-  fv.row_lo = n == 0 ? 1 : 0;
-  fv.row_hi = WA < 5 ? -1 : (n == N - 1 ? H - 2 : H - 1);
+  word_rows<P>(n, N, H, WA, fv.row_lo, fv.row_hi);
   fv.ox = kV1 ? __shfl_sync(kAll, m.ox, v) : 0;
   fv.oy = kV1 ? __shfl_sync(kAll, m.oy, v) : 0;
   fv.tw = clampi(WA - fv.ox, 0, kTile);
@@ -193,9 +224,9 @@ __device__ __forceinline__ FanView fan_view(const FanMeta& m,
 // false): taps clamped into the atlas plane. K3: positions relative to
 // the tile, taps outside it weigh 0 (the tile is a rectangle, so the row
 // and column factors are masked, which zeroes the same products).
-template <bool kV1>
-__device__ __forceinline__ void fan_sample(const FanView& fv, int H, int WA,
-                                           float gx, float gy,
+template <bool kV1, typename P>
+__device__ __forceinline__ void fan_sample(const FanViewT<P>& fv, int H,
+                                           int WA, float gx, float gy,
                                            float val[3]) {
   float x = fv.fr[0] + gx * fv.fr[2] + gy * fv.fr[4];
   float y = fv.fr[1] + gx * fv.fr[3] + gy * fv.fr[5];
@@ -220,7 +251,7 @@ __device__ __forceinline__ void fan_sample(const FanView& fv, int H, int WA,
   const int xa = clampi(ax, 0, WA - 1), xb = clampi(ax + 1, 0, WA - 1);
   const int r0 = clampi(ay, 0, H - 1), r1 = clampi(ay + 1, 0, H - 1);
   float c00[3], c10[3], c01[3], c11[3];
-  const uint8_t* p0 = fv.img + (r0 * WA + xa) * 3;
+  const P* p0 = fv.img + (r0 * WA + xa) * 3;
   row_pair(p0, xb != xa, r0 >= fv.row_lo && r0 <= fv.row_hi, c00, c10);
   row_pair(p0 + (r1 - r0) * WA * 3, xb != xa,
            r1 >= fv.row_lo && r1 <= fv.row_hi, c01, c11);
@@ -260,9 +291,9 @@ __device__ __forceinline__ float robust_incc(float var, float var_r,
   return xx / (1.f + 3.f * xx);
 }
 
-template <int kHeld, bool kV1>
+template <int kHeld, bool kV1, typename P>
 __global__ void __launch_bounds__(32 * kFanWarps)
-    fan_incc_kernel(const uint8_t* __restrict__ atlas, int N, int H, int WA,
+    fan_incc_kernel(const P* __restrict__ atlas, int N, int H, int WA,
                     const int* __restrict__ vid,
                     const int* __restrict__ tile_org,
                     const float* __restrict__ frames,
@@ -292,7 +323,7 @@ __global__ void __launch_bounds__(32 * kFanWarps)
       lattice(in[k] ? lane + 32 * k : 0, wsize, gx[k], gy[k]);
     }
     for (int v = 0; v < T; ++v) {
-      const FanView V = fan_view<kV1>(meta, atlas, N, H, WA, v);
+      const FanViewT<P> V = fan_view<kV1>(meta, atlas, N, H, WA, v);
       float x[kHeld][3] = {};
       float m[3] = {};
 #pragma unroll
@@ -320,10 +351,10 @@ __global__ void __launch_bounds__(32 * kFanWarps)
       cross = lane == v ? q[1] : cross;
     }
   } else {
-    const FanView R = fan_view<kV1>(meta, atlas, N, H, WA, 0);
+    const FanViewT<P> R = fan_view<kV1>(meta, atlas, N, H, WA, 0);
     float mean0[3] = {};
     for (int v = 0; v < T; ++v) {
-      const FanView V = fan_view<kV1>(meta, atlas, N, H, WA, v);
+      const FanViewT<P> V = fan_view<kV1>(meta, atlas, N, H, WA, v);
       float m[3] = {};
       for (int s = lane; s < s2; s += 32) {
         float gx, gy, x[3] = {};
@@ -363,12 +394,13 @@ __global__ void __launch_bounds__(32 * kFanWarps)
         robust_incc(var, var0, cross / norm);
 }
 
-// Launch K1 (kV1 false; tile_org unused) or K3 on `stream`: one warp per
-// (patch, probe), kFanWarps warps per block, samples held in registers
-// where the window allows. Returns the CUDA error code (invalid value for
-// T outside 1..32, wsize outside 1..kFanMaxWsize or an atlas plane of 2
-// GB or more).
-template <bool kV1>
+// Launch K1 (kV1 false; tile_org unused) or K3 on `stream`, on an atlas
+// of pixel type P (uint8, or float32 for gamma-decoded pyramids): one warp
+// per (patch, probe), kFanWarps warps per block, samples held in
+// registers where the window allows. Returns the CUDA error code (invalid
+// value for T outside 1..32, wsize outside 1..kFanMaxWsize or an atlas
+// plane of 2^31 values or more).
+template <bool kV1, typename P>
 __host__ inline int launch_fan_incc(const void* atlas, int N, int H, int WA,
                                     const void* vid, const void* tile_org,
                                     const void* frames, const void* ok,
@@ -383,38 +415,50 @@ __host__ inline int launch_fan_incc(const void* atlas, int N, int H, int WA,
   const int held = (wsize * wsize + 31) / 32;
   auto go = [&](auto kernel) {
     kernel<<<blocks, 32 * kFanWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(atlas), N, H, WA,
+        static_cast<const P*>(atlas), N, H, WA,
         static_cast<const int*>(vid), static_cast<const int*>(tile_org),
         static_cast<const float*>(frames), static_cast<const uint8_t*>(ok),
         static_cast<float*>(out), B, T, fan, wsize);
   };
   switch (held) {  // registers up to s2 = 128 (wsize 11), then recompute
-    case 1: go(fan_incc_kernel<1, kV1>); break;
-    case 2: go(fan_incc_kernel<2, kV1>); break;
-    case 3: go(fan_incc_kernel<3, kV1>); break;
-    case 4: go(fan_incc_kernel<4, kV1>); break;
-    default: go(fan_incc_kernel<0, kV1>); break;
+    case 1: go(fan_incc_kernel<1, kV1, P>); break;
+    case 2: go(fan_incc_kernel<2, kV1, P>); break;
+    case 3: go(fan_incc_kernel<3, kV1, P>); break;
+    case 4: go(fan_incc_kernel<4, kV1, P>); break;
+    default: go(fan_incc_kernel<0, kV1, P>); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- The block-window body (K2: csrc/windows.cu, K4: csrc/incc.cu) -------
 // A (patch, view) pair samples its s2 block-relative positions (relx,
-// rely) bilinearly inside the k x k block at starts = (n, sy, sx_atlas),
-// the start clamped into the atlas like the reference's CLIP-mode block
-// gather and a tap outside [0, k) of the block weighing 0, and its window
-// is normalized to zero per-channel mean and unit global variance. One
-// warp per window, with no shared memory and no block barrier. Lane l
-// owns samples l, l + 32, ...; with kHeld > 0 samples per lane (windows
-// of up to 32 * kHeld samples) they stay in registers, with kHeld = 0
-// (larger windows) each pass recomputes its samples from the atlas. A
-// held window whose taps all lie inside its block, on rows that may be
-// read as words (every window the reference's geometry makes, barring
-// the atlas's first and last rows), takes the inner path: no masks,
-// clamps or row checks, so fewer instructions a sample. The
-// arithmetic is the first kernels' and the plain version's operation
-// for operation (ops/texture.block_bilinear, normalize_tex), so a window
-// comes out as the same bits on either path.
+// rely) bilinearly from the k x k block at starts = (n, sy, sx_atlas), and
+// its window is normalized to zero per-channel mean and unit global
+// variance. Two sampling rules, a template argument kBlocked:
+//   blocked (the reference package's `_block_bilinear`): the start is
+//     clamped into the atlas like its CLIP-mode block gather and a tap
+//     outside [0, k) of the block weighs 0;
+//   unblocked (its `bilinear_color`, taken when `_USE_BLOCK_SAMPLING` is
+//     False): the start is used as given and every tap is read, clamped
+//     into the atlas plane - plain bilinear sampling at atlas position
+//     start + rel.
+// The atlas's pixels are uint8 or float32 (gamma-decoded pyramids), a
+// type argument P. One warp per window, with no shared memory and no
+// block barrier. Lane l owns samples l, l + 32, ...; with kHeld > 0
+// samples per lane (windows of up to 32 * kHeld samples) they stay in
+// registers, with kHeld = 0 (larger windows) each pass recomputes its
+// samples from the atlas. A held window whose taps all lie inside its
+// block, the block inside the atlas on rows that may be read as words
+// (every window the reference's geometry makes, barring the uint8 atlas's
+// first and last rows), takes the inner path: no masks, clamps or row
+// checks, so fewer instructions a sample; there the two rules agree. The
+// arithmetic is the first kernels' and the plain version's operation for
+// operation (ops/texture.block_bilinear, normalize_tex), so a window
+// comes out as the same bits on either path. A window whose samples
+// differ by their rounding alone (a flat region, or unblocked taps all
+// clamped onto one pixel) has a variance of rounding noise: its
+// normalized values are that noise, unspecified beyond what
+// normalize_tex states for them.
 
 constexpr int kBlockWarps = 8;      // warps per block
 constexpr int kBlockMaxWsize = 63;  // K2 and K4 take s2 <= kBlockMaxWsize^2
@@ -438,60 +482,69 @@ __host__ inline WinConst win_const(int s2) {
   return {s2f, 1.f / s2f, n3, 1.f / n3};
 }
 
-// A pair's block: its atlas plane, its origin clamped into the atlas, and
-// the rows row_lo .. row_lo + row_n whose taps may be read as aligned
-// words (as in fan_view). inner: the block lies inside the atlas (k >= 2)
-// and every row of it may be read as words, so a tap inside the block
-// needs no clamp and no row check.
+// A pair's block: its atlas plane, its origin (clamped into the atlas
+// where kBlocked), and the rows row_lo .. row_lo + row_n whose taps may be
+// read as aligned words (word_rows). inner: the block lies inside the
+// atlas (k >= 2) and every row of it may be read as words, so a tap
+// inside the block needs no clamp and no row check.
+template <typename P>
 struct BlockView {
-  const uint8_t* img;
+  const P* img;
   int sy, sx, row_lo;
   unsigned row_n;
   bool inner;
 };
 
-__device__ __forceinline__ BlockView block_view(const uint8_t* atlas, int N,
-                                                int H, int WA, int k, int n,
-                                                int sy, int sx) {
-  BlockView bv;
+template <bool kBlocked, typename P>
+__device__ __forceinline__ BlockView<P> block_view(const P* atlas, int N,
+                                                   int H, int WA, int k,
+                                                   int n, int sy, int sx) {
+  BlockView<P> bv;
   n = clampi(n, 0, N - 1);
   bv.img = atlas + static_cast<long long>(n) * H * WA * 3;
-  bv.sy = clampi(sy, 0, H - k > 0 ? H - k : 0);
-  bv.sx = clampi(sx, 0, WA - k > 0 ? WA - k : 0);
-  bv.row_lo = n == 0 ? 1 : 0;
-  const int row_hi = WA < 5 ? -1 : (n == N - 1 ? H - 2 : H - 1);
+  bv.sy = kBlocked ? clampi(sy, 0, H - k > 0 ? H - k : 0) : sy;
+  bv.sx = kBlocked ? clampi(sx, 0, WA - k > 0 ? WA - k : 0) : sx;
+  int row_hi;
+  word_rows<P>(n, N, H, WA, bv.row_lo, row_hi);
   bv.row_n = row_hi >= bv.row_lo ? static_cast<unsigned>(row_hi - bv.row_lo)
                                  : 0u;
   if (row_hi < bv.row_lo) bv.row_lo = H;  // no row qualifies
+  // a clamped (blocked) start lies in [0, WA - k] already
   bv.inner = k >= 2 && H >= k && WA >= k && bv.sy >= bv.row_lo &&
-             bv.sy + k - 1 <= row_hi;
+             bv.sy + k - 1 <= row_hi &&
+             (kBlocked || (bv.sx >= 0 && bv.sx <= WA - k));
   return bv;
 }
 
 // Bilinear RGB at block-relative (rx, ry): interpolated in y, then in x,
-// products unfused (-fmad=false), as in the plain version. The block rule
-// masks the row and column weights; the masked tap's pixel is still read,
-// clamped into the atlas, and weighs exactly 0. Positions are clamped to
-// +-kFanPosMax, where floor_int is exact; taps that far out weigh 0 either
-// way. Each tap row is read with row_pair (aligned 8-byte words).
-__device__ __forceinline__ void block_tap(const BlockView& bv, int H, int WA,
-                                          int k, float rx, float ry,
+// products unfused (-fmad=false), as in the plain version. The blocked
+// rule masks the row and column weights; the masked tap's pixel is still
+// read, clamped into the atlas, and weighs exactly 0. Positions are
+// clamped to +-kFanPosMax, where floor_int is exact; taps that far out
+// weigh 0 (blocked) or read the atlas's edge (unblocked) either way. Each
+// tap row is read with row_pair.
+template <bool kBlocked, typename P>
+__device__ __forceinline__ void block_tap(const BlockView<P>& bv, int H,
+                                          int WA, int k, float rx, float ry,
                                           float val[3]) {
   rx = fminf(fmaxf(rx, -kFanPosMax), kFanPosMax);
   ry = fminf(fmaxf(ry, -kFanPosMax), kFanPosMax);
   int lx, ly;
   const float fx = floor_int(rx, lx), fy = floor_int(ry, ly);
   const float ax = rx - fx, ay = ry - fy;
-  const unsigned ku = static_cast<unsigned>(k);
-  const float wx0 = static_cast<unsigned>(lx) < ku ? 1.f - ax : 0.f;
-  const float wx1 = static_cast<unsigned>(lx + 1) < ku ? ax : 0.f;
-  const float wy0 = static_cast<unsigned>(ly) < ku ? 1.f - ay : 0.f;
-  const float wy1 = static_cast<unsigned>(ly + 1) < ku ? ay : 0.f;
+  float wx0 = 1.f - ax, wx1 = ax, wy0 = 1.f - ay, wy1 = ay;
+  if (kBlocked) {
+    const unsigned ku = static_cast<unsigned>(k);
+    wx0 = static_cast<unsigned>(lx) < ku ? wx0 : 0.f;
+    wx1 = static_cast<unsigned>(lx + 1) < ku ? wx1 : 0.f;
+    wy0 = static_cast<unsigned>(ly) < ku ? wy0 : 0.f;
+    wy1 = static_cast<unsigned>(ly + 1) < ku ? wy1 : 0.f;
+  }
   const int x0 = bv.sx + lx, y0 = bv.sy + ly;  // atlas pixel of tap 00
   const int xa = clampi(x0, 0, WA - 1), xb = clampi(x0 + 1, 0, WA - 1);
   const int r0 = clampi(y0, 0, H - 1), r1 = clampi(y0 + 1, 0, H - 1);
   float p00[3], p10[3], p01[3], p11[3];  // p<dx><dy>
-  const uint8_t* q = bv.img + (r0 * WA + xa) * 3;
+  const P* q = bv.img + (r0 * WA + xa) * 3;
   row_pair(q, xb != xa, static_cast<unsigned>(r0 - bv.row_lo) <= bv.row_n,
            p00, p10);
   row_pair(q + (r1 - r0) * WA * 3, xb != xa,
@@ -520,14 +573,15 @@ __device__ __forceinline__ bool taps_inside(float rx, float ry, int k) {
 // block_tap for taps inside an inner block: the masks, clamps and row
 // checks change nothing there and are left out; the same operations
 // otherwise, so the same bits.
-__device__ __forceinline__ void inner_tap(const BlockView& bv, int WA,
+template <typename P>
+__device__ __forceinline__ void inner_tap(const BlockView<P>& bv, int WA,
                                           float rx, float ry, float val[3]) {
   int lx, ly;
   const float fx = floor_int(rx, lx), fy = floor_int(ry, ly);
   const float wx1 = rx - fx, wy1 = ry - fy;
   const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
   float p00[3], p10[3], p01[3], p11[3];  // p<dx><dy>
-  const uint8_t* q = bv.img + ((bv.sy + ly) * WA + bv.sx + lx) * 3;
+  const P* q = bv.img + ((bv.sy + ly) * WA + bv.sx + lx) * 3;
   row_pair(q, true, true, p00, p10);
   row_pair(q + WA * 3, true, true, p01, p11);
 #pragma unroll
@@ -558,10 +612,12 @@ __device__ __forceinline__ void held_positions(const float* __restrict__ rxp,
 // held in registers: x[j] is sample lane + 32 j, 0 past s2. Lane sums by
 // sample, one butterfly, the means' and the variance's divisions, and one
 // division by sd a value, as the first kernels did (div_by gives the
-// IEEE division's bits). kInner: every tap lies inside an inner block.
-template <int kHeld, bool kInner>
+// IEEE division's bits). The variance is a sum of squared deviations from
+// the mean (two passes), so a dark, nearly flat gamma window keeps its
+// relative precision. kInner: every tap lies inside an inner block.
+template <int kHeld, bool kInner, bool kBlocked, typename P>
 __device__ __forceinline__ void held_window_at(
-    const BlockView& bv, int H, int WA, int k, const float (&rx)[kHeld],
+    const BlockView<P>& bv, int H, int WA, int k, const float (&rx)[kHeld],
     const float (&ry)[kHeld], int s2, const WinConst& wc, int lane,
     float (&x)[kHeld][3]) {
   float m[3] = {};
@@ -573,7 +629,7 @@ __device__ __forceinline__ void held_window_at(
       if (kInner)
         inner_tap(bv, WA, rx[j], ry[j], x[j]);
       else
-        block_tap(bv, H, WA, k, rx[j], ry[j], x[j]);
+        block_tap<kBlocked>(bv, H, WA, k, rx[j], ry[j], x[j]);
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) m[c] += x[j][c];
@@ -605,8 +661,8 @@ __device__ __forceinline__ void held_window_at(
 // held_window_at, on the inner path where every tap of the window lies
 // inside an inner block (a vote over the warp; the reference's block
 // geometry puts every window there), else on the general one.
-template <int kHeld>
-__device__ __forceinline__ void held_window(const BlockView& bv, int H,
+template <int kHeld, bool kBlocked, typename P>
+__device__ __forceinline__ void held_window(const BlockView<P>& bv, int H,
                                             int WA, int k,
                                             const float (&rx)[kHeld],
                                             const float (&ry)[kHeld],
@@ -617,9 +673,11 @@ __device__ __forceinline__ void held_window(const BlockView& bv, int H,
   for (int j = 0; j < kHeld; ++j)
     if (lane + 32 * j < s2) inner = inner && taps_inside(rx[j], ry[j], k);
   if (__all_sync(0xffffffffu, inner))
-    held_window_at<kHeld, true>(bv, H, WA, k, rx, ry, s2, wc, lane, x);
+    held_window_at<kHeld, true, kBlocked>(bv, H, WA, k, rx, ry, s2, wc,
+                                          lane, x);
   else
-    held_window_at<kHeld, false>(bv, H, WA, k, rx, ry, s2, wc, lane, x);
+    held_window_at<kHeld, false, kBlocked>(bv, H, WA, k, rx, ry, s2, wc,
+                                           lane, x);
 }
 
 // A window's moments for the recomputing path (kHeld = 0): per-channel
@@ -628,14 +686,16 @@ struct BlockStats {
   float mean[3], sd, y;
 };
 
+template <bool kBlocked, typename P>
 __device__ __forceinline__ BlockStats block_stats(
-    const BlockView& bv, int H, int WA, int k, const float* __restrict__ rxp,
-    const float* __restrict__ ryp, int s2, const WinConst& wc, int lane) {
+    const BlockView<P>& bv, int H, int WA, int k,
+    const float* __restrict__ rxp, const float* __restrict__ ryp, int s2,
+    const WinConst& wc, int lane) {
   BlockStats st;
   float m[3] = {};
   for (int s = lane; s < s2; s += 32) {
     float v[3];
-    block_tap(bv, H, WA, k, __ldg(rxp + s), __ldg(ryp + s), v);
+    block_tap<kBlocked>(bv, H, WA, k, __ldg(rxp + s), __ldg(ryp + s), v);
 #pragma unroll
     for (int c = 0; c < 3; ++c) m[c] += v[c];
   }
@@ -645,7 +705,7 @@ __device__ __forceinline__ BlockStats block_stats(
   float sq[1] = {0.f};
   for (int s = lane; s < s2; s += 32) {
     float v[3];
-    block_tap(bv, H, WA, k, __ldg(rxp + s), __ldg(ryp + s), v);
+    block_tap<kBlocked>(bv, H, WA, k, __ldg(rxp + s), __ldg(ryp + s), v);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const float d = v[c] - st.mean[c];
@@ -660,11 +720,12 @@ __device__ __forceinline__ BlockStats block_stats(
 }
 
 // Normalized RGB of the sample at (rx, ry) of a window with moments st.
-__device__ __forceinline__ void block_value(const BlockView& bv, int H,
+template <bool kBlocked, typename P>
+__device__ __forceinline__ void block_value(const BlockView<P>& bv, int H,
                                             int WA, int k,
                                             const BlockStats& st, float rx,
                                             float ry, float val[3]) {
-  block_tap(bv, H, WA, k, rx, ry, val);
+  block_tap<kBlocked>(bv, H, WA, k, rx, ry, val);
 #pragma unroll
   for (int c = 0; c < 3; ++c)
     val[c] = div_by(val[c] - st.mean[c], st.sd, st.y);
@@ -686,7 +747,7 @@ __device__ __forceinline__ void zero_fill(float* dst, int n, int lane) {
 }
 
 // Arguments K2 and K4 do not take: an empty or too large window, a block
-// of k < 1, an atlas plane of 2 GB or more.
+// of k < 1, an atlas plane of 2^31 values or more.
 __host__ inline bool block_args_bad(int H, int WA, int s2, int k) {
   return s2 < 1 || s2 > kBlockMaxWsize * kBlockMaxWsize || k < 1 ||
          3LL * H * WA >= (1LL << 31);

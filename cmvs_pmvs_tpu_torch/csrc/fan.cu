@@ -28,6 +28,10 @@
 // Registers (nvcc -Xptxas -v, CUDA 12.8, sm_90a): 47 / 64 / 71 / 79 / 75
 // for 1 / 2 / 3 / 4 samples a lane and the recomputing path; no spills.
 //
+// Float32 atlases (gamma-decoded pyramids): the same body with
+// P = float (cmvs_fan_v1_incc_f32), the reference's float `tiles`; see
+// csrc/fan2.cu.
+//
 // Numerics: float32, the parent kernel's and the plain version's
 // operation order (ops/fan.incc_fan_v1_plain), -fmad=false; outputs are
 // the parent kernel's bit for bit. Probes with ok = 0 contribute an
@@ -40,6 +44,19 @@ extern "C" int cmvs_fan_v1_incc(const void* atlas, int N, int H, int WA,
                                 const void* frames, const void* ok,
                                 void* out, int B, int T, int fan, int wsize,
                                 void* stream) {
-  return cmvs::launch_fan_incc<true>(atlas, N, H, WA, vid, tile_org, frames,
-                                     ok, out, B, T, fan, wsize, stream);
+  return cmvs::launch_fan_incc<true, uint8_t>(atlas, N, H, WA, vid, tile_org,
+                                              frames, ok, out, B, T, fan,
+                                              wsize, stream);
+}
+
+// K3 on a float32 atlas (gamma-decoded pyramids; the reference package's
+// float `tiles`, pyramid.py:59-77): the same body, taps read as floats.
+extern "C" int cmvs_fan_v1_incc_f32(const void* atlas, int N, int H, int WA,
+                                    const void* vid, const void* tile_org,
+                                    const void* frames, const void* ok,
+                                    void* out, int B, int T, int fan,
+                                    int wsize, void* stream) {
+  return cmvs::launch_fan_incc<true, float>(atlas, N, H, WA, vid, tile_org,
+                                            frames, ok, out, B, T, fan, wsize,
+                                            stream);
 }

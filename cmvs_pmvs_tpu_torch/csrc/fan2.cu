@@ -41,6 +41,16 @@
 // for 1 / 2 / 3 / 4 samples a lane and the recomputing path; no spills
 // (wsize 7 holds 2 a lane) but 32 bytes on the recomputing path.
 //
+// Float32 atlases (gamma-decoded pyramids): the same body with
+// P = float (cmvs_fan_incc_f32), the reference's float `tiles2`. A tap
+// row is six scalar loads (a 12-byte pixel is only 4-byte aligned) and
+// needs no byte conversion; no row rule applies. The moments stay two-
+// pass: gamma values lie in [0, 1] and dark windows have variances of
+// 1e-8 and less, which a difference of sums (the reference's
+// `_moments_tail2`) would cancel. On an H100 it takes what the uint8
+// body takes (PERF.md section 6); chip_smoke.py's build phase logs each
+// instantiation's registers and spills.
+//
 // Numerics: float32; sample positions, bilinear weights, two-pass
 // moments and the INCC in the operation order of the parent kernel and
 // the plain PyTorch version (ops/fan2.incc_fan_plain), built with
@@ -55,6 +65,18 @@ extern "C" int cmvs_fan_incc(const void* atlas, int N, int H, int WA,
                              const void* vid, const void* frames,
                              const void* ok, void* out, int B, int T,
                              int fan, int wsize, void* stream) {
-  return cmvs::launch_fan_incc<false>(atlas, N, H, WA, vid, nullptr, frames,
-                                      ok, out, B, T, fan, wsize, stream);
+  return cmvs::launch_fan_incc<false, uint8_t>(atlas, N, H, WA, vid, nullptr,
+                                               frames, ok, out, B, T, fan,
+                                               wsize, stream);
+}
+
+// K1 on a float32 atlas (gamma-decoded pyramids; the reference package's
+// float `tiles2`, pyramid.py:59-77): the same body, taps read as floats.
+extern "C" int cmvs_fan_incc_f32(const void* atlas, int N, int H, int WA,
+                                 const void* vid, const void* frames,
+                                 const void* ok, void* out, int B, int T,
+                                 int fan, int wsize, void* stream) {
+  return cmvs::launch_fan_incc<false, float>(atlas, N, H, WA, vid, nullptr,
+                                             frames, ok, out, B, T, fan,
+                                             wsize, stream);
 }

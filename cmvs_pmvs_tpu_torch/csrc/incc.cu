@@ -1,8 +1,11 @@
 // Fused block INCC kernel (K4).
 //
-// Replaces the Pallas TPU kernel `_incc_kernel` (cmvs_pmvs_tpu/ops/
-// pallas_incc.py, launched by `incc_pallas` and `incc_pallas_regions`)
-// and the XLA block gather that fed it: for every (patch b, view v) pair
+// The counterpart of the Pallas TPU kernel `_incc_kernel` (cmvs_pmvs_tpu/
+// ops/pallas_incc.py, launched by `incc_pallas` and `incc_pallas_regions`,
+// which nothing in the reference package calls): on the port's central
+// path it computes the reference's non-kernel objective (`grab_tex` +
+// `normalize_tex` + `ncc_dot`, refine.per_view_inccs) in one kernel. For
+// every (patch b, view v) pair
 // it samples the s2 block-relative positions (relx, rely) bilinearly
 // inside the k x k block of starts[b, v] (K2's block rule), normalizes
 // the window to zero per-channel mean and unit global variance, and
@@ -39,6 +42,10 @@
 // samples a lane, no spills; 64 and 16 bytes spilled on the recomputing
 // path (wsize >= 13).
 //
+// Instantiations, as K2's: uint8 or float32 atlas, blocked or
+// unblocked rule (cmvs_incc_blocks, _f32, _unblocked, _unblocked_f32;
+// chip_smoke.py's build phase logs each one's registers and spills).
+//
 // Numerics: float32, -fmad=false. Each window's values are the first
 // version's bit for bit (K2's arithmetic), and so is each product
 // (v / sd_v) * (r / sd_0); only the cross sum's order differs (by sample,
@@ -50,9 +57,9 @@
 
 namespace {
 
-template <int kHeld>
+template <int kHeld, bool kBlocked, typename P>
 __global__ void __launch_bounds__(32 * cmvs::kBlockWarps)
-    incc_blocks_kernel(const uint8_t* __restrict__ atlas, int N, int H,
+    incc_blocks_kernel(const P* __restrict__ atlas, int N, int H,
                        int WA, const int* __restrict__ starts,
                        const float* __restrict__ relx,
                        const float* __restrict__ rely,
@@ -79,9 +86,10 @@ __global__ void __launch_bounds__(32 * cmvs::kBlockWarps)
   const unsigned oks = __ballot_sync(kAll, ok_j);
   const bool ref_ok = (oks & 1u) != 0;
   auto view = [&](int v) {
-    return cmvs::block_view(atlas, N, H, WA, k, __shfl_sync(kAll, n, v),
-                            __shfl_sync(kAll, sy, v),
-                            __shfl_sync(kAll, sx, v));
+    return cmvs::block_view<kBlocked>(atlas, N, H, WA, k,
+                                      __shfl_sync(kAll, n, v),
+                                      __shfl_sync(kAll, sy, v),
+                                      __shfl_sync(kAll, sx, v));
   };
   const float* rx0 = relx + base * s2;
   const float* ry0 = rely + base * s2;
@@ -90,13 +98,15 @@ __global__ void __launch_bounds__(32 * cmvs::kBlockWarps)
     if constexpr (kHeld > 0) {
       float rx[kHeld], ry[kHeld], r[kHeld][3];  // r: view 0's window
       cmvs::held_positions<kHeld>(rx0, ry0, s2, lane, rx, ry);
-      cmvs::held_window<kHeld>(view(0), H, WA, k, rx, ry, s2, wc, lane, r);
+      cmvs::held_window<kHeld, kBlocked>(view(0), H, WA, k, rx, ry, s2, wc,
+                                         lane, r);
       for (int v = 1; v < T; ++v) {
         if (!((oks >> v) & 1u)) continue;
         float x[kHeld][3];
         cmvs::held_positions<kHeld>(rx0 + v * s2, ry0 + v * s2, s2, lane, rx,
                                     ry);
-        cmvs::held_window<kHeld>(view(v), H, WA, k, rx, ry, s2, wc, lane, x);
+        cmvs::held_window<kHeld, kBlocked>(view(v), H, WA, k, rx, ry, s2, wc,
+                                           lane, x);
         float q[1] = {0.f};
 #pragma unroll
         for (int j = 0; j < kHeld; ++j) {
@@ -107,23 +117,23 @@ __global__ void __launch_bounds__(32 * cmvs::kBlockWarps)
         cross = lane == v ? q[0] : cross;
       }
     } else {
-      const cmvs::BlockView R = view(0);
+      const cmvs::BlockView<P> R = view(0);
       const cmvs::BlockStats r0 =
-          cmvs::block_stats(R, H, WA, k, rx0, ry0, s2, wc, lane);
+          cmvs::block_stats<kBlocked>(R, H, WA, k, rx0, ry0, s2, wc, lane);
       for (int v = 1; v < T; ++v) {
         if (!((oks >> v) & 1u)) continue;
-        const cmvs::BlockView V = view(v);
+        const cmvs::BlockView<P> V = view(v);
         const float* rxv = rx0 + v * s2;
         const float* ryv = ry0 + v * s2;
         const cmvs::BlockStats st =
-            cmvs::block_stats(V, H, WA, k, rxv, ryv, s2, wc, lane);
+            cmvs::block_stats<kBlocked>(V, H, WA, k, rxv, ryv, s2, wc, lane);
         float q[1] = {0.f};
         for (int s = lane; s < s2; s += 32) {
           float x[3], e[3];
-          cmvs::block_value(V, H, WA, k, st, __ldg(rxv + s), __ldg(ryv + s),
-                            x);
-          cmvs::block_value(R, H, WA, k, r0, __ldg(rx0 + s), __ldg(ry0 + s),
-                            e);
+          cmvs::block_value<kBlocked>(V, H, WA, k, st, __ldg(rxv + s),
+                                      __ldg(ryv + s), x);
+          cmvs::block_value<kBlocked>(R, H, WA, k, r0, __ldg(rx0 + s),
+                                      __ldg(ry0 + s), e);
 #pragma unroll
           for (int c = 0; c < 3; ++c) q[0] += x[c] * e[c];
         }
@@ -144,14 +154,15 @@ __global__ void __launch_bounds__(32 * cmvs::kBlockWarps)
   }
 }
 
-}  // namespace
-
-// Returns the CUDA error code (invalid value for T outside 1..32, s2
-// outside 1..63^2, k < 1 or an atlas plane of 2 GB or more).
-extern "C" int cmvs_incc_blocks(const void* atlas, int N, int H, int WA,
-                                const void* starts, const void* relx,
-                                const void* rely, const void* ok, void* out,
-                                int B, int T, int s2, int k, void* stream) {
+// K4 on an atlas of pixel type P under the block rule kBlocked (see
+// common.cuh). Returns the CUDA error code (invalid value for T outside
+// 1..32, s2 outside 1..63^2, k < 1 or an atlas plane of 2^31 values or
+// more).
+template <bool kBlocked, typename P>
+int launch_incc_blocks(const void* atlas, int N, int H, int WA,
+                       const void* starts, const void* relx, const void* rely,
+                       const void* ok, void* out, int B, int T, int s2, int k,
+                       void* stream) {
   if (T < 1 || T > 32 || cmvs::block_args_bad(H, WA, s2, k))
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>(
@@ -160,17 +171,34 @@ extern "C" int cmvs_incc_blocks(const void* atlas, int N, int H, int WA,
   auto go = [&](auto kernel) {
     kernel<<<blocks, 32 * cmvs::kBlockWarps, 0,
              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(atlas), N, H, WA,
+        static_cast<const P*>(atlas), N, H, WA,
         static_cast<const int*>(starts), static_cast<const float*>(relx),
         static_cast<const float*>(rely), static_cast<const uint8_t*>(ok),
         static_cast<float*>(out), B, T, s2, k, cmvs::win_const(s2));
   };
   switch (cmvs::held_samples(s2)) {
-    case 1: go(incc_blocks_kernel<1>); break;
-    case 2: go(incc_blocks_kernel<2>); break;
-    case 3: go(incc_blocks_kernel<3>); break;
-    case 4: go(incc_blocks_kernel<4>); break;
-    default: go(incc_blocks_kernel<0>); break;
+    case 1: go(incc_blocks_kernel<1, kBlocked, P>); break;
+    case 2: go(incc_blocks_kernel<2, kBlocked, P>); break;
+    case 3: go(incc_blocks_kernel<3, kBlocked, P>); break;
+    case 4: go(incc_blocks_kernel<4, kBlocked, P>); break;
+    default: go(incc_blocks_kernel<0, kBlocked, P>); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// The four instantiations: uint8 or float32 atlas, blocked or unblocked.
+#define CMVS_INCC_ENTRY(NAME, BLOCKED, P)                                     \
+  extern "C" int NAME(const void* atlas, int N, int H, int WA,               \
+                      const void* starts, const void* relx, const void* rely, \
+                      const void* ok, void* out, int B, int T, int s2, int k, \
+                      void* stream) {                                         \
+    return launch_incc_blocks<BLOCKED, P>(atlas, N, H, WA, starts, relx,     \
+                                          rely, ok, out, B, T, s2, k,         \
+                                          stream);                            \
+  }
+CMVS_INCC_ENTRY(cmvs_incc_blocks, true, uint8_t)
+CMVS_INCC_ENTRY(cmvs_incc_blocks_f32, true, float)
+CMVS_INCC_ENTRY(cmvs_incc_blocks_unblocked, false, uint8_t)
+CMVS_INCC_ENTRY(cmvs_incc_blocks_unblocked_f32, false, float)

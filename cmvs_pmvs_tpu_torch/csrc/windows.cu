@@ -34,6 +34,15 @@
 // -v, CUDA 12.8, sm_90a): 27 / 32 / 32 / 40 for 1-4 samples a lane, 52
 // recomputing; no spills.
 //
+// Instantiations: uint8 or float32 atlas (gamma-decoded
+// pyramids; float taps are six scalar loads a row), and the blocked rule
+// or the unblocked one (the reference's `bilinear_color`, taken when its
+// `_USE_BLOCK_SAMPLING` is False: the start as given, every tap read and
+// clamped into the atlas plane; a window inside its block takes the same
+// inner path as under the blocked rule): cmvs_windows, cmvs_windows_f32,
+// cmvs_windows_unblocked, cmvs_windows_unblocked_f32 (chip_smoke.py's
+// build phase logs each one's registers and spills).
+//
 // Numerics: float32, bit-identical to the first version (same sampling
 // and normalization operation order, -fmad=false, the same butterflies),
 // and to the plain version (ops/windows.windows_plain) up to summation
@@ -49,9 +58,9 @@ namespace {
 template <int kHeld>
 constexpr int kMinBlocks = kHeld == 0 ? 1 : (kHeld == 4 ? 6 : 8);
 
-template <int kHeld>
+template <int kHeld, bool kBlocked, typename P>
 __global__ void __launch_bounds__(32 * cmvs::kBlockWarps, kMinBlocks<kHeld>)
-    windows_kernel(const uint8_t* __restrict__ atlas, int N, int H, int WA,
+    windows_kernel(const P* __restrict__ atlas, int N, int H, int WA,
                    const int* __restrict__ starts,
                    const float* __restrict__ relx,
                    const float* __restrict__ rely,
@@ -71,13 +80,14 @@ __global__ void __launch_bounds__(32 * cmvs::kBlockWarps, kMinBlocks<kHeld>)
     cmvs::zero_fill(dst, s2 * 3, lane);
     return;
   }
-  const cmvs::BlockView bv = cmvs::block_view(atlas, N, H, WA, k, n, sy, sx);
+  const cmvs::BlockView<P> bv =
+      cmvs::block_view<kBlocked>(atlas, N, H, WA, k, n, sy, sx);
   const float* rxp = relx + p * s2;
   const float* ryp = rely + p * s2;
   if constexpr (kHeld > 0) {
     float rx[kHeld], ry[kHeld], x[kHeld][3];
     cmvs::held_positions<kHeld>(rxp, ryp, s2, lane, rx, ry);
-    cmvs::held_window<kHeld>(bv, H, WA, k, rx, ry, s2, wc, lane, x);
+    cmvs::held_window<kHeld, kBlocked>(bv, H, WA, k, rx, ry, s2, wc, lane, x);
 #pragma unroll
     for (int j = 0; j < kHeld; ++j) {
       const int s = lane + 32 * j;
@@ -88,24 +98,25 @@ __global__ void __launch_bounds__(32 * cmvs::kBlockWarps, kMinBlocks<kHeld>)
     }
   } else {
     const cmvs::BlockStats st =
-        cmvs::block_stats(bv, H, WA, k, rxp, ryp, s2, wc, lane);
+        cmvs::block_stats<kBlocked>(bv, H, WA, k, rxp, ryp, s2, wc, lane);
     for (int s = lane; s < s2; s += 32) {
       float v[3];
-      cmvs::block_value(bv, H, WA, k, st, __ldg(rxp + s), __ldg(ryp + s), v);
+      cmvs::block_value<kBlocked>(bv, H, WA, k, st, __ldg(rxp + s),
+                                  __ldg(ryp + s), v);
 #pragma unroll
       for (int c = 0; c < 3; ++c) dst[s * 3 + c] = v[c];
     }
   }
 }
 
-}  // namespace
-
-// Returns the CUDA error code (invalid value for s2 outside 1..63^2, k < 1
-// or an atlas plane of 2 GB or more).
-extern "C" int cmvs_windows(const void* atlas, int N, int H, int WA,
-                            const void* starts, const void* relx,
-                            const void* rely, const void* ok, void* out,
-                            long long pairs, int s2, int k, void* stream) {
+// K2 on an atlas of pixel type P under the block rule kBlocked (see
+// common.cuh). Returns the CUDA error code (invalid value for s2 outside
+// 1..63^2, k < 1 or an atlas plane of 2^31 values or more).
+template <bool kBlocked, typename P>
+int launch_windows(const void* atlas, int N, int H, int WA,
+                   const void* starts, const void* relx, const void* rely,
+                   const void* ok, void* out, long long pairs, int s2, int k,
+                   void* stream) {
   if (cmvs::block_args_bad(H, WA, s2, k))
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>(
@@ -113,17 +124,33 @@ extern "C" int cmvs_windows(const void* atlas, int N, int H, int WA,
   auto go = [&](auto kernel) {
     kernel<<<blocks, 32 * cmvs::kBlockWarps, 0,
              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(atlas), N, H, WA,
+        static_cast<const P*>(atlas), N, H, WA,
         static_cast<const int*>(starts), static_cast<const float*>(relx),
         static_cast<const float*>(rely), static_cast<const uint8_t*>(ok),
         static_cast<float*>(out), pairs, s2, k, cmvs::win_const(s2));
   };
   switch (cmvs::held_samples(s2)) {
-    case 1: go(windows_kernel<1>); break;
-    case 2: go(windows_kernel<2>); break;
-    case 3: go(windows_kernel<3>); break;
-    case 4: go(windows_kernel<4>); break;
-    default: go(windows_kernel<0>); break;
+    case 1: go(windows_kernel<1, kBlocked, P>); break;
+    case 2: go(windows_kernel<2, kBlocked, P>); break;
+    case 3: go(windows_kernel<3, kBlocked, P>); break;
+    case 4: go(windows_kernel<4, kBlocked, P>); break;
+    default: go(windows_kernel<0, kBlocked, P>); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// The four instantiations: uint8 or float32 atlas, blocked or unblocked.
+#define CMVS_WINDOWS_ENTRY(NAME, BLOCKED, P)                                  \
+  extern "C" int NAME(const void* atlas, int N, int H, int WA,               \
+                      const void* starts, const void* relx, const void* rely, \
+                      const void* ok, void* out, long long pairs, int s2,     \
+                      int k, void* stream) {                                  \
+    return launch_windows<BLOCKED, P>(atlas, N, H, WA, starts, relx, rely,   \
+                                      ok, out, pairs, s2, k, stream);         \
+  }
+CMVS_WINDOWS_ENTRY(cmvs_windows, true, uint8_t)
+CMVS_WINDOWS_ENTRY(cmvs_windows_f32, true, float)
+CMVS_WINDOWS_ENTRY(cmvs_windows_unblocked, false, uint8_t)
+CMVS_WINDOWS_ENTRY(cmvs_windows_unblocked_f32, false, float)

@@ -8,10 +8,12 @@ binomial {1,3,3,1}^2/64 stride-2 downsample that skips the last
 row/column and renormalizes at borders, per-level rounding to the byte
 grid, and 2x2 any-in mask/edge downsampling.
 
-The atlas stays float32 (uint8-valued) for the plain tensor code, and
-`atlas_u8` holds one uint8 copy for the CUDA kernels (ops/fan2,
-ops/windows) to read - the GPU replacement of the TPU tile copies.
-Gamma-decoded (non-byte) atlases are not ported yet.
+The atlas stays float32 for the plain tensor code, and `atlas_k` is the
+copy the CUDA kernels (ops/fan2, ops/fan, ops/windows, ops/incc) read -
+the GPU replacement of the TPU tile copies: uint8 for a byte-valued
+pyramid, and the float32 atlas itself for a gamma-decoded one (the
+reference's FURUKAWA_IMAGE_GAMMA, `build_pyramids(..., gamma=)`), whose
+[0, 1] values a uint8 copy would truncate.
 """
 from __future__ import annotations
 
@@ -25,14 +27,18 @@ import torch
 class PyramidSet:
     """All pyramids of all views in packed mip-atlas form."""
 
-    atlas: torch.Tensor       # [N, H0, WA, 3] f32, uint8-valued colors
-    atlas_u8: torch.Tensor    # [N, H0, WA, 3] u8 copy for the kernels
+    atlas: torch.Tensor       # [N, H0, WA, 3] f32 colors
+    atlas_k: torch.Tensor     # [N, H0, WA, 3] the kernels' copy: u8, or
+    #                           the f32 atlas itself when not byte_valued
     mask_atlas: torch.Tensor  # [N, H0, WA] f32: 1.0 = in mask
     edge_atlas: torch.Tensor  # [N, H0, WA] f32: 1.0 = textured/usable
     widths: torch.Tensor      # [L, N] i32 true per-view width per level
     heights: torch.Tensor     # [L, N] i32
     xoff: torch.Tensor        # [L] i32 x offset of each level
     num_levels: int
+    # False when the atlas holds gamma-decoded floats in [0, 1]
+    # (image.cpp:184-195) rather than byte values
+    byte_valued: bool = True
 
     @property
     def num_images(self) -> int:
@@ -42,11 +48,13 @@ class PyramidSet:
 _K1 = (1.0, 3.0, 3.0, 1.0)
 
 
-def _binomial_downsample(img, valid):
+def _binomial_downsample(img, valid, quantize: bool = True):
     """One pyramid step. img [N, H, W, C], valid [N, H, W] (1 where a tap
-    may be used). Every partial sum is a multiple of 1/64 below 2^18, so
-    the result is exact in f32 whatever the summation order - the
-    downsample is bit-identical to the reference's convolution."""
+    may be used). For byte values every partial sum is a multiple of 1/64
+    below 2^18, so the result is exact in f32 whatever the summation
+    order - the downsample is bit-identical to the reference's
+    convolution. quantize: round to the byte grid (False for gamma
+    pyramids, whose sums round in the order of the taps)."""
     n, h, w, c = img.shape
     oh, ow = h // 2, w // 2
     ph, pw = 2 * oh + 3, 2 * ow + 3
@@ -70,7 +78,7 @@ def _binomial_downsample(img, valid):
     safe = torch.where(pos, den, torch.ones_like(den))
     out = torch.where(pos[..., None], num / safe[..., None],
                       torch.zeros_like(num))
-    return torch.floor(out + 0.5)
+    return torch.floor(out + 0.5) if quantize else out
 
 
 def _any_in_downsample(mask):
@@ -97,9 +105,12 @@ def _dims_mask(widths, heights, h, w, inclusive_last: bool):
 def build_pyramids(images: list[np.ndarray],
                    masks: list[np.ndarray] | None, num_levels: int,
                    edges: list[np.ndarray] | None = None,
-                   device="cpu") -> PyramidSet:
+                   device="cpu", gamma: float | None = None) -> PyramidSet:
     """Packed PyramidSet from per-view uint8 RGB images; views without a
-    mask or edge map are all-in (image.hpp:180-203)."""
+    mask or edge map are all-in (image.hpp:180-203). gamma: the
+    reference's FURUKAWA_IMAGE_GAMMA (image.cpp:184-195 decodeGamma):
+    pixels become (v / 255) ** gamma and levels are not re-quantized; the
+    pyramid is then not byte_valued and `atlas_k` is the float32 atlas."""
     dev = torch.device(device)
     n = len(images)
     widths = [np.array([im.shape[1] for im in images], np.int64)]
@@ -113,7 +124,8 @@ def build_pyramids(images: list[np.ndarray],
     edg0 = np.zeros((n, h0, w0), np.float32)
     for i, im in enumerate(images):
         h, w = im.shape[:2]
-        img0[i, :h, :w] = im.astype(np.float32)
+        img0[i, :h, :w] = im.astype(np.float32) if gamma is None \
+            else (im.astype(np.float32) / 255.0) ** gamma
         msk0[i, :h, :w] = 1.0 if masks is None or masks[i] is None \
             else (masks[i] > 0).astype(np.float32)
         edg0[i, :h, :w] = 1.0 if edges is None or edges[i] is None \
@@ -126,7 +138,7 @@ def build_pyramids(images: list[np.ndarray],
     for lv in range(1, num_levels):
         valid = torch.as_tensor(_dims_mask(widths[lv - 1], heights[lv - 1],
                                            ph, pw, False), device=dev)
-        img = _binomial_downsample(imgs[-1], valid)
+        img = _binomial_downsample(imgs[-1], valid, gamma is None)
         ph, pw = ph // 2, pw // 2
         inside = torch.as_tensor(_dims_mask(widths[lv], heights[lv], ph, pw,
                                             True), device=dev)
@@ -151,11 +163,18 @@ def build_pyramids(images: list[np.ndarray],
     def i32(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
 
-    return PyramidSet(atlas=atlas, atlas_u8=atlas.to(torch.uint8),
+    return PyramidSet(atlas=atlas,
+                      atlas_k=kernel_atlas(atlas, gamma is None),
                       mask_atlas=mask_atlas, edge_atlas=edge_atlas,
                       widths=i32(np.stack(widths)),
                       heights=i32(np.stack(heights)), xoff=i32(xoff),
-                      num_levels=num_levels)
+                      num_levels=num_levels, byte_valued=gamma is None)
+
+
+def kernel_atlas(atlas: torch.Tensor, byte_valued: bool) -> torch.Tensor:
+    """The kernels' copy of the atlas: uint8 for byte values (lossless),
+    the float32 atlas itself otherwise."""
+    return atlas.to(torch.uint8) if byte_valued else atlas
 
 
 def set_edge(pyr: PyramidSet, images: list[np.ndarray],

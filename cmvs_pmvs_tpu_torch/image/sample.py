@@ -1,9 +1,9 @@
 """Subpixel sampling out of the packed pyramid atlas.
 
 Counterpart of cmvs_pmvs_tpu/image/sample.py: the reference's bilinear
-getColor (image.hpp:434-471) and nearest-neighbour getMask/getEdge
-(image.hpp:553-593) as gathers with a per-element level. Bicubic
-sampling is not ported yet.
+getColor (image.hpp:434-471), its compile-time bicubic variant
+(FURUKAWA_IMAGE_BICUBIC, image.hpp:282-433) and nearest-neighbour
+getMask/getEdge (image.hpp:553-593) as gathers with a per-element level.
 """
 from __future__ import annotations
 
@@ -44,6 +44,39 @@ def bilinear_color(pyr: PyramidSet, n, level, x, y):
     """Bilinear RGB at level-l pixel coords (x, y) of view n (the
     reference's getColor, image.hpp:434-471); [..., 3]."""
     return bilinear_at(pyr.atlas, n, x, y, pyr.xoff[level])
+
+
+def _cubic_weights(p):
+    """The reference's cubic-convolution (a = -1) weights of taps -1..2
+    for fraction p (image.hpp:286-302)."""
+    f0 = 1.0 + p
+    w0 = ((-f0 + 5.0) * f0 - 8.0) * f0 + 4.0
+    w1 = (p - 2.0) * p * p + 1.0
+    f2 = 1.0 - p
+    w2 = (f2 - 2.0) * f2 * f2 + 1.0
+    f3 = 2.0 - p
+    w3 = ((-f3 + 5.0) * f3 - 8.0) * f3 + 4.0
+    return w0, w1, w2, w3
+
+
+def bicubic_color(pyr: PyramidSet, n, level, x, y):
+    """Bicubic RGB at level-l pixel coords (x, y) of view n: 4x4 cubic
+    convolution (a = -1) around floor(x), floor(y), taps clamped into the
+    atlas (the reference's FURUKAWA_IMAGE_BICUBIC getColor); [..., 3]."""
+    fx = torch.floor(x)
+    fy = torch.floor(y)
+    ax = fx.to(torch.int64) + pyr.xoff[level]
+    ly = fy.to(torch.int64)
+    wx = _cubic_weights((x - fx)[..., None])
+    wy = _cubic_weights((y - fy)[..., None])
+    out = 0.0
+    for j, wyj in enumerate(wy):
+        row = 0.0
+        for i, wxi in enumerate(wx):
+            row = row + wxi * _atlas_gather(pyr.atlas, n, ax + i - 1,
+                                            ly + j - 1).to(torch.float32)
+        out = out + wyj * row
+    return out
 
 
 def _nearest_plane(plane, pyr: PyramidSet, n, level, x, y):

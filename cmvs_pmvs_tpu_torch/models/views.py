@@ -3,7 +3,10 @@
 Counterpart of cmvs_pmvs_tpu/models/views.py (reference optim.cpp): a
 patch's view set is a dense bool mask [B, N] plus a reference index [B];
 slot order is recreated where it matters (slot 0 = reference). The
-windows kernel (ops/windows, K2) plugs in through `grab_masked`.
+windows kernel (ops/windows, K2) plugs in through `grab_masked`, which
+follows the reference's `_grab_masked_one` (views.py:131-149): on the
+kernel path (ops/refine._use_fan) K2 blocked, as the reference's
+`windows_pallas`; off it, grabTex by ops/texture's switches (ops/grab).
 """
 from __future__ import annotations
 
@@ -14,15 +17,13 @@ import torch
 from ..geom.cameras import CameraSet, get_unit, project, unit3
 from ..image.pyramid import PyramidSet
 from ..image.sample import edge_at
-from ..ops.refine import _patch_axes
-from ..ops.texture import grab_block_geometry, ncc_dot, robustincc
-from ..ops.windows import windows
+from ..ops import texture
+from ..ops.grab import grab_windows
+from ..ops.refine import _patch_axes, _use_fan
+from ..ops.texture import ncc_dot, robustincc
 
 HUGE = 1.0e10
 COS60 = math.cos(math.radians(60.0))
-# Rows per windows-kernel batch: bounds the [B, N, S2, 3] grab buffer
-# (8192 x 12 views x 49 x 3 x 4 B ~ 58 MB) whatever the caller's batch.
-GRAB_CHUNK = 8192
 
 
 def _rays(cams: CameraSet, coord):
@@ -78,26 +79,14 @@ def remove_images_edge(pyr: PyramidSet, cams: CameraSet, level: int,
 
 def grab_masked(cams, pyr, level, wsize, coord, normal, ref, vmask):
     """Normalized windows of every view in vmask, patch axes from the
-    reference view: (texs [B, N, S2, 3], ok [B, N]). Runs the windows
-    kernel in GRAB_CHUNK-row batches."""
-    n = cams.num
-    texs, oks = [], []
-    for s in range(0, coord.shape[0], GRAB_CHUNK):
-        sl = slice(s, s + GRAB_CHUNK)
-        c, nm, vm = coord[sl], normal[sl], vmask[sl]
-        px, py = _patch_axes(cams, level, ref[sl].long(), c, nm)
-        views = torch.arange(n, dtype=torch.int32,
-                             device=c.device)[None].expand(vm.shape)
-        starts, relx, rely, ok = grab_block_geometry(
-            cams, pyr, level, wsize, c, px, py, nm, views, vm)
-        texs.append(windows(pyr.atlas_u8, starts, relx, rely,
-                            ok.reshape(-1), t=n))
-        oks.append(ok)
-    if not texs:
-        s2 = wsize * wsize
-        return (coord.new_zeros((0, n, s2, 3)),
-                torch.zeros((0, n), dtype=torch.bool, device=coord.device))
-    return torch.cat(texs), torch.cat(oks)
+    reference view: (texs [B, N, S2, 3], ok [B, N]), by ops/grab's
+    switches, with K2 blocked on the kernel path (ops/refine._use_fan)."""
+    px, py = _patch_axes(cams, level, ref.long(), coord, normal)
+    views = torch.arange(cams.num, dtype=torch.int32,
+                         device=coord.device)[None].expand(vmask.shape)
+    return grab_windows(cams, pyr, level, wsize, coord, px, py, normal,
+                        views, vmask,
+                        blocked=True if _use_fan(None, coord) else None)
 
 
 def constraint_images(cams, pyr, level, wsize, coord, normal, ref, vmask,
@@ -191,8 +180,9 @@ def set_ref_image(cams, pyr, level, wsize, tn: int, coord, normal, ref,
     view remains."""
     n = vmask.shape[1]
     refs, oks = [ref[:0]], [vmask[:0, 0]]
-    for s in range(0, coord.shape[0], GRAB_CHUNK):
-        sl = slice(s, s + GRAB_CHUNK)
+    chunk = texture.GRAB_CHUNK
+    for s in range(0, coord.shape[0], chunk):
+        sl = slice(s, s + chunk)
         texs, gok = grab_masked(cams, pyr, level, wsize, coord[sl],
                                 normal[sl], ref[sl], vmask[sl])
         incc = robustincc(1.0 - pairwise_dots(texs))

@@ -17,7 +17,8 @@ What v1 computes beyond v2: every probe of a pair is sampled from the
 one TILE_PX x TILE_PX tile chosen from probe 0; a bilinear tap outside
 that tile weighs 0, and tile pixels past the atlas edge read 0 (the
 reference's zero-padded `build_tiles`). `incc_fan_v1` launches the CUDA
-kernel (csrc/fan.cu) for CUDA tensors and runs `incc_fan_v1_plain` for
+kernel (csrc/fan.cu) for CUDA tensors - its uint8 or its float32
+(gamma-decoded atlas) instantiation - and runs `incc_fan_v1_plain` for
 CPU tensors.
 """
 from __future__ import annotations
@@ -115,7 +116,7 @@ def grab_frames(cams, pyr, level: int, wsize: int, views, view_valid,
 
     # enclosing tile from probe 0 (pallas_fan.py:449-460), x in atlas px
     x0 = pyr.xoff[newlevel].to(c2f.dtype)
-    ty_n, tx_n = tile_counts(pyr.atlas_u8.shape[1], pyr.atlas_u8.shape[2])
+    ty_n, tx_n = tile_counts(pyr.atlas.shape[1], pyr.atlas.shape[2])
 
     def tile_index(lo, count):
         i = torch.div(lo.clamp(min=0.0), TILE_STRIDE, rounding_mode="floor")
@@ -165,22 +166,22 @@ def robust_incc_vs_ref(tex, ok):
     return xx / (1.0 + 3.0 * xx)
 
 
-def tile_px(atlas_u8, n, ox, oy, tx, ty):
+def tile_px(atlas, n, ox, oy, tx, ty):
     """RGB [..., 3] f32 of pixel (tx, ty) of the TILE_PX tile at atlas
     pixel (ox, oy) of view n (all int64, broadcast): 0 outside the tile
     or past the atlas edge (the v1 tile rule of csrc/common.cuh)."""
-    h, wa = atlas_u8.shape[1], atlas_u8.shape[2]
+    h, wa = atlas.shape[1], atlas.shape[2]
     y = oy + ty
     x = ox + tx
     inside = ((tx >= 0) & (tx < TILE_PX) & (ty >= 0) & (ty < TILE_PX)
               & (y < h) & (x < wa))
-    val = atlas_u8[n, y.clamp(0, h - 1), x.clamp(0, wa - 1)]
+    val = atlas[n, y.clamp(0, h - 1), x.clamp(0, wa - 1)]
     return torch.where(inside[..., None], val.to(torch.float32),
                        torch.zeros((), dtype=torch.float32,
-                                   device=atlas_u8.device))
+                                   device=atlas.device))
 
 
-def _tile_bilinear(atlas_u8, n, org, rx, ry):
+def _tile_bilinear(atlas, n, org, rx, ry):
     """Bilinear RGB [..., 3] at tile-relative positions rx/ry of the
     TILE_PX tile at atlas[n, org_y:, org_x:]; taps outside the tile or
     past the atlas edge read 0. Operation order of csrc/fan.cu."""
@@ -196,21 +197,21 @@ def _tile_bilinear(atlas_u8, n, org, rx, ry):
     oy = org[..., 1].long()
 
     def px(tx, ty):
-        return tile_px(atlas_u8, n, ox, oy, tx, ty)
+        return tile_px(atlas, n, ox, oy, tx, ty)
 
     return (px(lx, ly) * dx0 * dy0 + px(lx + 1, ly) * dx1 * dy0
             + px(lx, ly + 1) * dx0 * dy1 + px(lx + 1, ly + 1) * dx1 * dy1)
 
 
-def incc_fan_v1_plain(atlas_u8, vid, tile_org, frames, ok, wsize: int):
+def incc_fan_v1_plain(atlas, vid, tile_org, frames, ok, wsize: int):
     """Plain PyTorch version of the K3 kernel, same signature:
-    atlas_u8 [N, H, WA, 3] u8, vid [B, T] i32, tile_org [B, T, 2] i32,
+    atlas [N, H, WA, 3] u8 or f32, vid [B, T] i32, tile_org [B, T, 2] i32,
     frames [B, T, fan, 6] f32, ok [B, T, fan] bool -> incc [B, T, fan]
     f32 (unmasked; callers apply validity)."""
     x, y = window_positions(frames, wsize)                  # [B,T,F,S2]
     org = tile_org[:, :, None, None, :]
-    n = vid.long().clamp(0, atlas_u8.shape[0] - 1)[:, :, None, None]
-    tex = _tile_bilinear(atlas_u8, n, org, x - org[..., 0].to(x.dtype),
+    n = vid.long().clamp(0, atlas.shape[0] - 1)[:, :, None, None]
+    tex = _tile_bilinear(atlas, n, org, x - org[..., 0].to(x.dtype),
                          y - org[..., 1].to(y.dtype))
     return robust_incc_vs_ref(tex, ok)
 
@@ -226,20 +227,22 @@ def count_clipped(stats, tile_org, frames, ok, wsize: int):
     stats["clipped"] = stats.get("clipped", 0) + clipped.sum()
 
 
-def incc_fan_v1(atlas_u8, vid, tile_org, frames, ok, wsize: int):
+def incc_fan_v1(atlas, vid, tile_org, frames, ok, wsize: int):
     """Robust INCC of every (patch, view, probe) vs the patch's view-0
     window at the same probe, all probes of a pair sampled from its
-    probe-0 tile; K3 on CUDA tensors, `incc_fan_v1_plain` on CPU
-    tensors. Shapes as in `incc_fan_v1_plain`."""
+    probe-0 tile; K3 on CUDA tensors (the instantiation for the atlas's
+    dtype, uint8 or float32), `incc_fan_v1_plain` on CPU tensors. Shapes
+    as in `incc_fan_v1_plain`."""
     if incc_fan_v1.clip_stats is not None:
         count_clipped(incc_fan_v1.clip_stats, tile_org, frames, ok, wsize)
     if not frames.is_cuda:
-        return incc_fan_v1_plain(atlas_u8, vid, tile_org, frames, ok, wsize)
+        return incc_fan_v1_plain(atlas, vid, tile_org, frames, ok, wsize)
     b, t, fan, _ = frames.shape
     dev = frames.device
     check_fan_shape("incc_fan_v1", t, wsize)
-    n, h, wa, _ = atlas_u8.shape
-    kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
+    n, h, wa = kernels.require_atlas(atlas, dev)
+    entry = kernels.entry_for(incc_fan_v1.entries, atlas.dtype,
+                              "incc_fan_v1")
     kernels.require(vid, "vid", torch.int32, (b, t), dev)
     kernels.require(tile_org, "tile_org", torch.int32, (b, t, 2), dev)
     kernels.require(frames, "frames", torch.float32, (b, t, fan, 6), dev)
@@ -247,24 +250,19 @@ def incc_fan_v1(atlas_u8, vid, tile_org, frames, ok, wsize: int):
     out = torch.empty((b, t, fan), dtype=torch.float32, device=dev)
     if b * fan == 0:
         return out
-    lib = kernels.lib()
-    kernels.check(lib.cmvs_fan_v1_incc(
-        atlas_u8.data_ptr(), n, h, wa, vid.data_ptr(), tile_org.data_ptr(),
-        frames.data_ptr(), ok.data_ptr(), out.data_ptr(), b, t, fan, wsize,
-        kernels.stream_handle()), "incc_fan_v1")
-    incc_fan_v1.launches += 1
-    if incc_fan_v1.capture is not None:
-        incc_fan_v1.capture.append(
-            ((atlas_u8, vid, tile_org, frames, ok, wsize), {}))
+    entry.launch((atlas.data_ptr(), n, h, wa, vid.data_ptr(),
+                  tile_org.data_ptr(), frames.data_ptr(), ok.data_ptr(),
+                  out.data_ptr(), b, t, fan, wsize),
+                 (atlas, vid, tile_org, frames, ok, wsize), {})
     return out
 
 
-incc_fan_v1.launches = 0
-# Opt-in: set to a list to keep the arguments (args, kwargs) of every
-# kernel launch, so that a run's launches can be replayed and timed at
-# their own shapes (chip_smoke.py phases 5, 8 and 9). The tensors are
-# kept, not copied.
-incc_fan_v1.capture = None
+# One instantiation an atlas dtype, each with its launch count and capture
+# list (kernels.Entry; chip_smoke.py replays the captured launches of
+# phases 5, 8, 9 and 13).
+incc_fan_v1.entries = {
+    torch.uint8: kernels.Entry("incc_fan_v1", "cmvs_fan_v1_incc"),
+    torch.float32: kernels.Entry("incc_fan_v1_f32", "cmvs_fan_v1_incc_f32")}
 # Opt-in diagnostic: set to a dict to accumulate, as device scalars, the
 # ok probes ("probes") and those with a sample outside the pair's probe-0
 # tile ("clipped") - the v1 rule gives such taps weight 0.

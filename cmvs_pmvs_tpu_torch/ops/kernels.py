@@ -34,14 +34,21 @@ build_report = ""     # nvcc's output of the library's build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_FAN = [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_FAN_V1 = [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_INCC = [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_WINDOWS = [_P, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
+            _P]
+# K1-K4 are built for uint8 and float32 (gamma-decoded) atlases, K2 and K4
+# also with the unblocked sampling rule (csrc/common.cuh): one symbol each.
 _SIGNATURES = {
-    "cmvs_fan_incc": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "cmvs_fan_v1_incc": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _P],
-    "cmvs_incc_blocks": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _P],
-    "cmvs_windows": [_P, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                     _I, _I, _P],
+    "cmvs_fan_incc": _FAN, "cmvs_fan_incc_f32": _FAN,
+    "cmvs_fan_v1_incc": _FAN_V1, "cmvs_fan_v1_incc_f32": _FAN_V1,
+    "cmvs_incc_blocks": _INCC, "cmvs_incc_blocks_f32": _INCC,
+    "cmvs_incc_blocks_unblocked": _INCC,
+    "cmvs_incc_blocks_unblocked_f32": _INCC,
+    "cmvs_windows": _WINDOWS, "cmvs_windows_f32": _WINDOWS,
+    "cmvs_windows_unblocked": _WINDOWS, "cmvs_windows_unblocked_f32": _WINDOWS,
     "cmvs_fan_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cmvs_interp_abl": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                         *[ctypes.c_uint, _I] * 4, _I, _I, _I, _I, _P],
@@ -130,6 +137,61 @@ def check(rc: int, name: str):
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# Every Entry by name, in the order their wrapper modules made them (the
+# K1-K4 wrappers, ops/fan2, ops/fan, ops/windows and ops/incc, each make
+# theirs when imported).
+ENTRIES: dict = {}
+
+
+class Entry:
+    """One instantiation of a kernel in the library: its name (e.g.
+    "windows_unblocked_f32"), its C symbol, its count of CUDA launches and
+    an opt-in list (`capture`, None by default) that keeps every launch's
+    wrapper arguments (args, kwargs) - the tensors, not copies - so that a
+    run's launches can be replayed and timed at their own shapes
+    (chip_smoke.py). Each registers itself in ENTRIES."""
+
+    def __init__(self, name: str, symbol: str):
+        self.name = name
+        self.symbol = symbol
+        self.launches = 0
+        self.capture = None
+        ENTRIES[name] = self
+
+    def launch(self, c_args: tuple, args: tuple, kwargs: dict):
+        """Launch on the current stream with the C arguments `c_args`
+        (the stream appended); count it and keep (args, kwargs) where
+        capturing; raise on a launch error."""
+        check(getattr(lib(), self.symbol)(*c_args, stream_handle()),
+              self.name)
+        self.launches += 1
+        if self.capture is not None:
+            self.capture.append((args, kwargs))
+
+
+def entry_for(entries: dict, key, name: str) -> Entry:
+    """The instantiation of `entries` for `key` (an atlas dtype, or (dtype,
+    blocked)); raise on a key the kernel is not built for."""
+    if key not in entries:
+        raise TypeError(f"{name}: no kernel for {key}; built for "
+                        f"{sorted(map(str, entries))}")
+    return entries[key]
+
+
+def require_atlas(atlas: torch.Tensor, device):
+    """Validate a kernel's atlas [N, H, WA, 3], uint8 or float32; returns
+    (N, H, WA)."""
+    if atlas.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"atlas: dtype {atlas.dtype}, the kernels take "
+                        f"torch.uint8 or torch.float32")
+    if atlas.dim() != 4 or atlas.shape[3] != 3:
+        raise ValueError(f"atlas: shape {tuple(atlas.shape)}, expected "
+                         f"[N, H, WA, 3]")
+    n, h, wa, _ = atlas.shape
+    require(atlas, "atlas", atlas.dtype, (n, h, wa, 3), device)
+    return n, h, wa
 
 
 def require(t: torch.Tensor, name: str, dtype, shape, device):

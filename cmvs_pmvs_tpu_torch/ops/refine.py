@@ -16,13 +16,21 @@ Two LM paths, as in the reference package:
     K1), False v1 (`ops/fan.incc_fan_v1`, K3, all probes of a pair
     sampled from its probe-0 tile);
   * the central-difference path (refine.py:492-571 in the reference):
-    every objective evaluation is block grabs + normalize + robust INCC
-    vs view 0 (`ops/incc.incc_blocks`: K4 on CUDA tensors, its plain
-    twin on CPU tensors) - the reference package's CPU path, and the
-    path CPU tensors take by default.
+    every objective evaluation is grabs + normalize + robust INCC vs view
+    0 - the reference package's non-kernel path (`_grab_all`), and the
+    path CPU tensors take by default. Its grabs are `ops/grab.grab_inccs`
+    under ops/texture's switches: bilinear windows run as
+    `ops/incc.incc_blocks` (K4 on CUDA tensors, its plain twin on CPU
+    tensors; blocked or unblocked by texture._USE_BLOCK_SAMPLING);
+    bicubic windows have no kernel, in the port as in the reference, and
+    are `texture.grab_tex` + `normalize_tex` + `ncc_dot` in plain torch
+    on whatever device the tensors are on.
 `USE_FAN` overrides the default for every call (None: fan on CUDA,
 central differences on CPU; False is the reference's
 USE_PALLAS_INCC=False); the per-call `use_fan=` argument overrides both.
+As the reference's `_pallas_enabled` (refine.py:211-217), the fan path
+runs only while texture.SAMPLING is "bilinear". The kernels read
+`pyr.atlas_k`: uint8, or float32 for a gamma-decoded pyramid.
 
 `view_group` (the reference's `view_axis`): a process group over which a
 patch's views are split, each rank holding the reference view in slot 0
@@ -40,10 +48,11 @@ import torch
 
 from ..geom.cameras import CameraSet, get_unit, project, unit3
 from ..image.pyramid import PyramidSet
+from . import texture
 from .fan import grab_frames, incc_fan_v1
 from .fan2 import incc_fan
-from .incc import incc_blocks
-from .texture import grab_block_geometry, unrobustincc
+from .grab import grab_inccs
+from .texture import unrobustincc
 
 ASCALE = math.pi / 48.0         # optim.cpp:590
 ANGLE_BOUND = 23.99999          # optim.cpp:601-602
@@ -188,6 +197,11 @@ def _patch_axes(cams: CameraSet, level: int, ref, coord, normal):
 
 
 def _use_fan(use_fan, coord) -> bool:
+    """Whether the fan LM (and the kernels' default path) runs: never
+    while texture.SAMPLING is not "bilinear" (the kernels sample
+    bilinearly only); else `use_fan`, else USE_FAN, else on CUDA."""
+    if texture.SAMPLING != "bilinear":
+        return False
     if use_fan is not None:
         return use_fan
     return coord.is_cuda if USE_FAN is None else USE_FAN
@@ -200,8 +214,8 @@ def _incc_probes(cams, pyr, level, wsize, views, view_valid, cf, nf):
     vid, tile_org, frames, ok = grab_frames(cams, pyr, level, wsize, views,
                                             view_valid, cf, nf)
     if USE_FAN_V2:
-        return incc_fan(pyr.atlas_u8, vid, frames, ok, wsize), ok
-    return incc_fan_v1(pyr.atlas_u8, vid, tile_org, frames, ok, wsize), ok
+        return incc_fan(pyr.atlas_k, vid, frames, ok, wsize), ok
+    return incc_fan_v1(pyr.atlas_k, vid, tile_org, frames, ok, wsize), ok
 
 
 def per_view_inccs(cams, pyr, level, wsize, prob: RefineProblem, coord,
@@ -216,11 +230,8 @@ def per_view_inccs(cams, pyr, level, wsize, prob: RefineProblem, coord,
     else:
         ref = prob.views[:, 0].clamp(min=0).long()
         px, py = _patch_axes(cams, level, ref, coord, normal)
-        starts, relx, rely, ok = grab_block_geometry(
-            cams, pyr, level, wsize, coord, px, py, normal, prob.views,
-            prob.view_valid)
-        incc = incc_blocks(pyr.atlas_u8, starts, relx, rely, ok.reshape(-1),
-                           ok.shape[1])
+        incc, ok = grab_inccs(cams, pyr, level, wsize, coord, px, py,
+                              normal, prob.views, prob.view_valid)
     ref_ok = ok[:, 0]
     pair_ok = ok & ref_ok[:, None]
     pair_ok[:, 0] = False

@@ -4,15 +4,26 @@ Counterpart of cmvs_pmvs_tpu/ops/texture.py (reference optim.cpp:783-863
 grabTex, :1031-1067 normalize, :1069-1088 dot) over [B, T] (patch, view)
 batches with validity masks.
 
-Sampling follows the reference package's block path (`_block_bilinear`,
-texture.py:259-297): each (patch, view) window is read out of one
-BLOCK_K x BLOCK_K pixel block whose origin sits one pixel before the
-window's minimum corner; a bilinear tap that falls outside the block
-gets weight 0. Inside the block this is plain bilinear interpolation.
-`block_bilinear` is that sampler (grabTex's windows are
-`block_bilinear` on the geometry of `grab_block_geometry`), used by the
-plain versions of the windows and block-INCC kernels (ops/windows,
-ops/incc).
+Sampling follows the reference package's switches of the same names
+(texture.py:23-28, :255):
+  * SAMPLING = "bilinear" with _USE_BLOCK_SAMPLING (the defaults): the
+    block path (`_block_bilinear`, texture.py:259-297). Each (patch,
+    view) window is read out of one BLOCK_K x BLOCK_K pixel block whose
+    origin sits one pixel before the window's minimum corner; a bilinear
+    tap that falls outside the block gets weight 0. Inside the block this
+    is plain bilinear interpolation. `block_bilinear` is that sampler
+    (grabTex's windows are `block_bilinear` on the geometry of
+    `grab_block_geometry`), used by the plain versions of the windows and
+    block-INCC kernels (ops/windows, ops/incc);
+  * _USE_BLOCK_SAMPLING = False: unblocked bilinear (`bilinear_color`),
+    every tap read, clamped into the atlas - `block_bilinear(...,
+    blocked=False)` on the same geometry, and the kernels' unblocked
+    instantiations;
+  * SAMPLING = "bicubic": the reference's FURUKAWA_IMAGE_BICUBIC
+    (`bicubic_color`). No kernel samples bicubically, in the port as in
+    the reference package; `grab_tex` is its only route.
+`grab_tex` is the reference's grabTex under those switches. The kernels
+run only while SAMPLING is "bilinear" (ops/refine._use_fan).
 """
 from __future__ import annotations
 
@@ -22,8 +33,20 @@ import torch
 
 from ..geom.cameras import CameraSet, project, unit3
 from ..image.pyramid import PyramidSet
+from ..image.sample import bicubic_color, bilinear_color
 
 BLOCK_K = 20
+# Subpixel sampling: "bilinear" (the reference's default) or "bicubic"
+# (its compile-time FURUKAWA_IMAGE_BICUBIC, image.hpp:282-433).
+SAMPLING = "bilinear"
+# Bilinear windows read from one BLOCK_K block per pair (True, the
+# reference package's default) or tap by tap from the atlas (False).
+_USE_BLOCK_SAMPLING = True
+# Rows (patches) per grab batch on the paths that sample in plain torch or
+# through the windows kernel: bounds the [B, T, S2, 3] buffers (8192 x 12
+# views x 49 x 3 x 4 B ~ 58 MB; the bicubic grab's 16 taps a sample
+# multiply its intermediates, so it is chunked the same way).
+GRAB_CHUNK = 8192
 
 
 def robustincc(x):
@@ -110,17 +133,24 @@ def _block_origin(pyr: PyramidSet, vid, newlevel, pos, k: int):
     return sy, sx + pyr.xoff[newlevel].long(), relx, rely
 
 
-def block_bilinear(atlas, n, sy, sx, relx, rely, k: int = BLOCK_K):
-    """Bilinear RGB of block-relative positions inside the k x k block at
-    atlas[n, sy:sy+k, sx:sx+k] (start clamped into the atlas, like the
-    reference's CLIP-mode gather); taps outside [0, k) weigh 0.
+def block_bilinear(atlas, n, sy, sx, relx, rely, k: int = BLOCK_K,
+                   blocked: bool = True):
+    """Bilinear RGB of block-relative positions of the k x k block at
+    atlas[n, sy:sy+k, sx:sx+k]. blocked: the start clamped into the atlas
+    (like the reference's CLIP-mode gather) and taps outside [0, k)
+    weighing 0. Unblocked: the start as given and every tap read, clamped
+    into the atlas plane - the reference's `bilinear_color` at atlas
+    position (sx + relx, sy + rely).
 
     atlas [N, H, WA, 3] (any dtype); n/sy/sx [...]; rel* [..., S2].
     Returns [..., S2, 3] float32."""
     h, wa = atlas.shape[1], atlas.shape[2]
     n = n.long()[..., None]
-    sy = sy.long().clamp(0, max(h - k, 0))[..., None]
-    sx = sx.long().clamp(0, max(wa - k, 0))[..., None]
+    sy = sy.long()[..., None]
+    sx = sx.long()[..., None]
+    if blocked:
+        sy = sy.clamp(0, max(h - k, 0))
+        sx = sx.clamp(0, max(wa - k, 0))
     fx = torch.floor(relx)
     fy = torch.floor(rely)
     lx = fx.long()
@@ -130,6 +160,8 @@ def block_bilinear(atlas, n, sy, sx, relx, rely, k: int = BLOCK_K):
     zero = torch.zeros_like(wx1)
 
     def w(wgt, tap):
+        if not blocked:
+            return wgt[..., None]
         return torch.where((tap >= 0) & (tap < k), wgt, zero)[..., None]
 
     wx0, wx1 = w(1.0 - wx1, lx), w(wx1, lx + 1)
@@ -163,9 +195,42 @@ def grab_block_geometry(cams: CameraSet, pyr: PyramidSet, level: int,
             rely.reshape(b * t, s2).contiguous(), ok)
 
 
+def grab_tex(cams: CameraSet, pyr: PyramidSet, level: int, wsize: int,
+             coord, pxaxis, pyaxis, pzaxis, views, view_valid,
+             angle_threshold: float = math.pi / 3.0):
+    """grabTex (optim.cpp:815-863, texture.py:105-133) for a [B, T] batch
+    of (patch, view) pairs: the view-angle gate, the footprint-adaptive
+    level, the margin-3 grabSafe check, then wsize^2 RGB samples by the
+    SAMPLING / _USE_BLOCK_SAMPLING switches. coord/p*axis [B, 4]; views
+    [B, T] i32; view_valid [B, T] bool. Returns (texs [B, T, S2, 3] f32,
+    ok [B, T] bool); texs are unnormalized, and hold samples at 3.0 where
+    not ok."""
+    if SAMPLING not in ("bilinear", "bicubic"):
+        raise ValueError(f"SAMPLING {SAMPLING!r}: 'bilinear' or 'bicubic'")
+    c2, dx2, dy2, newlevel, vid, ok = _grab_frame(
+        cams, pyr, level, wsize, coord, pxaxis, pyaxis, pzaxis, views,
+        view_valid, angle_threshold)
+    pos = _sample_positions(c2, dx2, dy2, ok, wsize)
+    if SAMPLING == "bilinear" and _USE_BLOCK_SAMPLING:
+        sy, sx, relx, rely = _block_origin(pyr, vid, newlevel, pos, BLOCK_K)
+        return block_bilinear(pyr.atlas, vid, sy, sx, relx, rely), ok
+    nl = newlevel[..., None].expand(pos.shape[:-1])
+    nv = vid[..., None].expand(pos.shape[:-1])
+    sample = bicubic_color if SAMPLING == "bicubic" else bilinear_color
+    return sample(pyr, nv, nl, pos[..., 0], pos[..., 1]), ok
+
+
 def normalize_tex(texs, valid):
     """Zero per-channel mean, unit global variance per window
-    (optim.cpp:1031-1067); zeros where invalid."""
+    (optim.cpp:1031-1067); zeros where invalid.
+
+    Only a variance of exactly 0 is guarded (the window stays its zero
+    deviations), as in the reference. A window whose samples differ by
+    their rounding alone (a flat region; unblocked taps all clamped onto
+    one pixel) has a variance of rounding noise, so its values are that
+    noise scaled up and depend on the order of operations: unspecified,
+    beyond being finite with a sum of squares of 0 or 3 * S2. The kernels
+    (csrc/common.cuh) give the same guarantee for such windows."""
     s2 = texs.shape[-2]
     dev = texs - texs.mean(dim=-2, keepdim=True)
     std = torch.sqrt((dev * dev).sum(dim=(-2, -1)) / (3.0 * s2))

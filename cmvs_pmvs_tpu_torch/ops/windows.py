@@ -7,8 +7,11 @@ postProcess and setRefImage in filterExact - take the normalized windows
 of every (patch, view) pair of a mask from here (models/views.
 grab_masked) and correlate them with one batched matmul.
 
-`windows` launches the CUDA kernel (csrc/windows.cu) for CUDA tensors
-and runs `windows_plain` for CPU tensors.
+`windows` launches the CUDA kernel (csrc/windows.cu) for CUDA tensors -
+one instantiation for each atlas dtype (uint8, float32 for gamma-decoded
+pyramids) and sampling rule (blocked, the reference's default; unblocked,
+its `_USE_BLOCK_SAMPLING = False`) - and runs `windows_plain` for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -41,36 +44,50 @@ def check_block_shape(name: str, pairs: int, t: int, s2: int, k: int,
                          f"k >= 1")
 
 
-def windows_plain(atlas_u8, starts, relx, rely, ok, t: int,
-                  k: int = BLOCK_K):
+def block_entries(name: str, symbol: str) -> dict:
+    """K2's or K4's four instantiations (kernels.Entry), keyed by (atlas
+    dtype, blocked): uint8 or float32 atlas, blocked or unblocked rule."""
+    return {(dtype, blocked): kernels.Entry(
+        name + ("" if blocked else "_unblocked") + suffix,
+        symbol + ("" if blocked else "_unblocked") + suffix)
+        for dtype, suffix in ((torch.uint8, ""), (torch.float32, "_f32"))
+        for blocked in (True, False)}
+
+
+def windows_plain(atlas, starts, relx, rely, ok, t: int, k: int = BLOCK_K,
+                  blocked: bool = True):
     """Plain PyTorch version of the K2 kernel: grab_tex's block sampling
+    (blocked) or its unblocked bilinear sampling (texture.block_bilinear)
     + normalize_tex, laid out as the kernel's output.
 
-    atlas_u8 [N, H, WA, 3] u8; starts [B*T, 3] i32 (n, sy, sx_atlas);
+    atlas [N, H, WA, 3] u8 or f32; starts [B*T, 3] i32 (n, sy, sx_atlas);
     relx/rely [B*T, S2] block-relative positions; ok [B*T] bool.
     Returns [B, T, S2, 3] f32, zeros where ok is False."""
     bt, s2 = relx.shape
-    texs = block_bilinear(atlas_u8, starts[:, 0], starts[:, 1],
-                          starts[:, 2], relx, rely, k)
+    texs = block_bilinear(atlas, starts[:, 0], starts[:, 1], starts[:, 2],
+                          relx, rely, k, blocked)
     return normalize_tex(texs, ok).reshape(bt // t, t, s2, 3)
 
 
-def windows(atlas_u8, starts, relx, rely, ok, t: int, k: int = BLOCK_K):
+def windows(atlas, starts, relx, rely, ok, t: int, k: int = BLOCK_K,
+            blocked: bool = True):
     """Normalized windows for [B*T] (patch, view) pairs -> [B, T, S2, 3];
-    K2 on CUDA tensors, `windows_plain` on CPU tensors."""
+    K2 on CUDA tensors (the instantiation for the atlas's dtype and
+    `blocked`), `windows_plain` on CPU tensors."""
     stats = windows.clip_stats
-    if stats is not None:
+    if stats is not None and blocked:
         clipped = ((relx < 0.0) | (relx > k - 1.0) | (rely < 0.0)
                    | (rely > k - 1.0)).any(dim=1) & ok
         stats["pairs"] = stats.get("pairs", 0) + ok.sum()
         stats["clipped"] = stats.get("clipped", 0) + clipped.sum()
     if not relx.is_cuda:
-        return windows_plain(atlas_u8, starts, relx, rely, ok, t, k)
+        return windows_plain(atlas, starts, relx, rely, ok, t, k, blocked)
     bt, s2 = relx.shape
     dev = relx.device
     check_block_shape("windows", bt, t, s2, k)
-    n, h, wa, _ = atlas_u8.shape
-    kernels.require(atlas_u8, "atlas_u8", torch.uint8, (n, h, wa, 3), dev)
+    n, h, wa = kernels.require_atlas(atlas, dev)
+    entry = kernels.entry_for(windows.entries, (atlas.dtype, blocked),
+                              "windows")
     kernels.require(starts, "starts", torch.int32, (bt, 3), dev)
     kernels.require(relx, "relx", torch.float32, (bt, s2), dev)
     kernels.require(rely, "rely", torch.float32, (bt, s2), dev)
@@ -78,23 +95,20 @@ def windows(atlas_u8, starts, relx, rely, ok, t: int, k: int = BLOCK_K):
     out = torch.empty((bt // t, t, s2, 3), dtype=torch.float32, device=dev)
     if bt == 0:
         return out
-    lib = kernels.lib()
-    kernels.check(lib.cmvs_windows(
-        atlas_u8.data_ptr(), n, h, wa, starts.data_ptr(), relx.data_ptr(),
-        rely.data_ptr(), ok.data_ptr(), out.data_ptr(), bt, s2, k,
-        kernels.stream_handle()), "windows")
-    windows.launches += 1
-    if windows.capture is not None:
-        windows.capture.append(((atlas_u8, starts, relx, rely, ok),
-                                {"t": t, "k": k}))
+    entry.launch((atlas.data_ptr(), n, h, wa, starts.data_ptr(),
+                  relx.data_ptr(), rely.data_ptr(), ok.data_ptr(),
+                  out.data_ptr(), bt, s2, k),
+                 (atlas, starts, relx, rely, ok),
+                 {"t": t, "k": k, "blocked": blocked})
     return out
 
 
-windows.launches = 0
-# Opt-in: a list that keeps every launch's arguments (see
-# ops/fan.incc_fan_v1.capture).
-windows.capture = None
+# The four instantiations, each with its launch count and capture list
+# (kernels.Entry): windows, windows_f32, windows_unblocked,
+# windows_unblocked_f32.
+windows.entries = block_entries("windows", "cmvs_windows")
 # Opt-in diagnostic: set to a dict to accumulate, as device scalars, the
 # ok pairs ("pairs") and those with a bilinear tap outside the BLOCK_K
-# block ("clipped") - the reference's block semantics drop such taps.
+# block ("clipped") - the reference's block semantics drop such taps
+# (counted for blocked calls only).
 windows.clip_stats = None

@@ -22,12 +22,9 @@ _QUIET = dict(log=lambda *a: None)
 
 
 def _wrappers():
-    from ..ops.fan import incc_fan_v1
-    from ..ops.fan2 import incc_fan
-    from ..ops.incc import incc_blocks
-    from ..ops.windows import windows
-    return {"incc_fan": incc_fan, "windows": windows,
-            "incc_fan_v1": incc_fan_v1, "incc_blocks": incc_blocks}
+    from ..ops import fan, fan2, incc, windows  # noqa: F401 (their Entries)
+    from ..ops.kernels import ENTRIES
+    return ENTRIES
 
 
 def _zero_launches():

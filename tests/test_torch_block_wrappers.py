@@ -88,10 +88,13 @@ def _case(seed=0):
             torch.tensor(rel[1], dtype=torch.float32), torch.tensor(ok))
 
 
-def _hand_bytes(name, atlas, starts, relx, rely, ok):
+def _hand_bytes(name, atlas, starts, relx, rely, ok, blocked=True):
     """Compulsory bytes by hand: starts (12 B), ok (1 B) and the output
-    of every pair; relx/rely (8 B a sample) and the distinct pixels (3 B)
-    of the in-block taps of each window the output needs."""
+    of every pair; relx/rely (8 B a sample) and the distinct pixels (3 B
+    on a uint8 atlas, 12 B on a float32 one) of the taps of each window
+    the output needs: blocked, the in-block taps of the clamped block;
+    unblocked, every tap from the start as given, clamped into the
+    atlas."""
     n_, h, wa, _ = atlas.shape
     ok = ok.numpy()
     need = ok if name == "windows" else \
@@ -99,17 +102,21 @@ def _hand_bytes(name, atlas, starts, relx, rely, ok):
     pixels = set()
     for p in np.flatnonzero(need):
         n = min(max(int(starts[p, 0]), 0), n_ - 1)
-        sy = min(max(int(starts[p, 1]), 0), h - BLOCK_K)
-        sx = min(max(int(starts[p, 2]), 0), wa - BLOCK_K)
+        sy, sx = int(starts[p, 1]), int(starts[p, 2])
+        if blocked:
+            sy = min(max(sy, 0), h - BLOCK_K)
+            sx = min(max(sx, 0), wa - BLOCK_K)
         for rx, ry in zip(relx[p].tolist(), rely[p].tolist()):
             for dx in (0, 1):
                 for dy in (0, 1):
                     lx, ly = int(np.floor(rx)) + dx, int(np.floor(ry)) + dy
-                    if 0 <= lx < BLOCK_K and 0 <= ly < BLOCK_K:
-                        pixels.add((n, min(sy + ly, h - 1),
-                                    min(sx + lx, wa - 1)))
+                    if not blocked or (0 <= lx < BLOCK_K
+                                       and 0 <= ly < BLOCK_K):
+                        pixels.add((n, min(max(sy + ly, 0), h - 1),
+                                    min(max(sx + lx, 0), wa - 1)))
     out = B * T * (S2 * 3 * 4 if name == "windows" else 4)
-    return B * T * 13 + out + int(need.sum()) * S2 * 8 + 3 * len(pixels)
+    return (B * T * 13 + out + int(need.sum()) * S2 * 8
+            + 3 * atlas.element_size() * len(pixels))
 
 
 @pytest.mark.parametrize("name", ["windows", "incc_blocks"])
@@ -128,6 +135,55 @@ def test_call_bound_counts_only_needed_windows(name):
     assert got["bound_ms"] == pytest.approx(
         max(want / cs.HBM_BYTES_PER_S,
             got["flops"] / cs.FP32_FLOP_PER_S) * 1e3)
+
+
+@pytest.mark.parametrize("blocked", [True, False])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("name", ["windows", "incc_blocks"])
+def test_call_bound_counts_element_size_and_rule(name, dtype, blocked):
+    """The float32 (gamma) and unblocked instantiations' bytes: 12 B a
+    distinct float pixel, and every tap of an unblocked window (from its
+    start as given) where the blocked rule counts the in-block ones."""
+    cs = _chip_smoke()
+    atlas, *rest = _case(2)
+    if dtype == torch.float32:
+        atlas = (atlas.float() / 255.0) ** 2.2
+    args = (atlas, *rest)
+    inst = (name + ("" if blocked else "_unblocked")
+            + ("_f32" if dtype == torch.float32 else ""))
+    got = cs.call_bound(inst, args, {"t": T, "blocked": blocked})
+    assert got["bytes"] == _hand_bytes(name, *args, blocked=blocked)
+    assert got["flops"] == cs.call_bound(name, args, {"t": T})["flops"]
+    if dtype == torch.float32:
+        u8 = cs.call_bound(name, (_case(2)[0], *rest),
+                           {"t": T, "blocked": blocked})
+        assert got["bytes"] > u8["bytes"]
+
+
+def test_fan_atlas_bytes_count_the_element_size():
+    """A float32 atlas's taps cost 12 B a pixel, four times a uint8
+    atlas's 3 B, on the same inputs (chip_smoke.fan_atlas_bytes, and
+    call_bound for K1 and K3 through it)."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(4)
+    u8 = torch.tensor(rng.integers(0, 256, (2, 40, 50, 3), np.uint8))
+    f32 = u8.float() / 255.0
+    vid = torch.tensor(rng.integers(0, 2, (3, 4)), dtype=torch.int32)
+    frames = torch.tensor(np.concatenate(
+        [rng.uniform(5, 30, (3, 4, 2, 2)), rng.uniform(0.8, 1.2,
+                                                       (3, 4, 2, 4))], -1),
+        dtype=torch.float32)
+    ok = torch.tensor(rng.random((3, 4, 2)) > 0.2)
+    org = torch.zeros((3, 4, 2), dtype=torch.int32)
+    for tile in (None, org):
+        a = cs.fan_atlas_bytes(u8, vid, frames, ok, tile)
+        assert a > 0 and cs.fan_atlas_bytes(f32, vid, frames, ok,
+                                            tile) == 4 * a
+    b8 = cs.call_bound("incc_fan", (u8, vid, frames, ok, 7), {})
+    b32 = cs.call_bound("incc_fan_f32", (f32, vid, frames, ok, 7), {})
+    assert b32["bytes"] - b8["bytes"] == 3 * cs.fan_atlas_bytes(
+        u8, vid, frames, ok)
+    assert b32["flops"] == b8["flops"]
 
 
 PTXAS = """\
@@ -149,14 +205,21 @@ ptxas info    : Used 64 registers, used 0 barriers, 16 bytes cumulative stack
 
 def test_kernel_registers_parses_ptxas_report():
     """chip_smoke reads each kernel's registers and spills off the
-    build's `-Xptxas -v` output."""
+    build's `-Xptxas -v` output; a pixel type argument reads u8 or f32."""
     assert _chip_smoke().kernel_registers(PTXAS) == [
         ("windows_kernel<2>", 32, 0), ("fan_incc_kernel<0, 1>", 64, 16)]
+    typed = PTXAS.replace("windows_kernelILi2EEE", "windows_kernelILi2ELb0EfEE"
+                          ).replace("fan_incc_kernelILi0ELb1EEE",
+                                    "fan_incc_kernelILi0ELb1EhEE")
+    assert _chip_smoke().kernel_registers(typed) == [
+        ("windows_kernel<2, 0, f32>", 32, 0),
+        ("fan_incc_kernel<0, 1, u8>", 64, 16)]
 
 
 def test_wrappers_on_cpu_return_plain_uncounted():
     args = _case(1)
-    wrappers = (W.windows, incc.incc_blocks)
+    wrappers = [*W.windows.entries.values(),
+                *incc.incc_blocks.entries.values()]
     before = [w.launches for w in wrappers]
     try:
         for w in wrappers:

@@ -111,8 +111,8 @@ def test_cameras_and_pyramid_from_numpy():
     ref = build_pyramids(list(scene.images), None, 3)
     _assert_same(pyr, {f.name: getattr(ref, f.name).numpy()
                        for f in dataclasses.fields(ref)
-                       if f.name != "num_levels"})
-    assert pyr.num_levels == 3
+                       if f.name not in ("num_levels", "byte_valued")})
+    assert pyr.num_levels == 3 and pyr.byte_valued
 
 
 def test_port_checkpoint_resume(engines, tmp_path):

@@ -15,7 +15,7 @@ import cmvs_pmvs_tpu_torch.ops.refine as TR  # noqa: E402
 from cmvs_pmvs_tpu_torch.geom import build_camera_set  # noqa: E402
 from cmvs_pmvs_tpu_torch.image import build_pyramids  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops import ablate as A  # noqa: E402
-from cmvs_pmvs_tpu_torch.ops import fan as F1, fan2, incc  # noqa: E402
+from cmvs_pmvs_tpu_torch.ops import fan as F1, fan2, incc, kernels  # noqa
 from cmvs_pmvs_tpu_torch.ops import windows as W  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops.refine import _patch_axes  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops.texture import grab_block_geometry  # noqa
@@ -24,6 +24,11 @@ from cmvs_pmvs_tpu_torch.utils.synthetic import make_plane_scene  # noqa
 pytestmark = pytest.mark.cuda
 B = 300
 T = 6
+
+
+def _n(name: str) -> int:
+    """Launches so far of the K1-K4 instantiation `name`."""
+    return kernels.ENTRIES[name].launches
 
 
 @pytest.fixture(scope="module")
@@ -68,11 +73,11 @@ def _frames(s, fan, step=0.002):
 def test_incc_fan_kernel_matches_plain(setup, fan):
     s = setup
     vid, _, frames, ok = _frames(s, fan)
-    before = fan2.incc_fan.launches
-    got = fan2.incc_fan(s["pyr"].atlas_u8, vid, frames, ok, 7)
+    before = _n("incc_fan")
+    got = fan2.incc_fan(s["pyr"].atlas_k, vid, frames, ok, 7)
     torch.cuda.synchronize()
-    assert fan2.incc_fan.launches == before + 1
-    want = fan2.incc_fan_plain(s["pyr"].atlas_u8, vid, frames, ok, 7)
+    assert _n("incc_fan") == before + 1
+    want = fan2.incc_fan_plain(s["pyr"].atlas_k, vid, frames, ok, 7)
     pair = ok & ok[:, 0:1, :]
     assert float(pair.float().mean()) > 0.5
     assert float((got - want).abs()[pair].max()) <= 1e-4
@@ -85,11 +90,11 @@ def test_incc_fan_v1_kernel_matches_plain(setup, fan):
     s = setup
     for step in (0.002, 0.05):
         vid, org, frames, ok = _frames(s, fan, step)
-        args = (s["pyr"].atlas_u8, vid, org, frames, ok, 7)
-        before = F1.incc_fan_v1.launches
+        args = (s["pyr"].atlas_k, vid, org, frames, ok, 7)
+        before = _n("incc_fan_v1")
         got = F1.incc_fan_v1(*args)
         torch.cuda.synchronize()
-        assert F1.incc_fan_v1.launches == before + 1
+        assert _n("incc_fan_v1") == before + 1
         want = F1.incc_fan_v1_plain(*args)
         pair = ok & ok[:, 0:1, :]
         assert float(pair.float().mean()) > 0.3
@@ -147,7 +152,7 @@ def _check_fans(atlas, vid, org, frames, ok, wsize):
 def test_fan_kernels_edge_shapes(setup, t, wsize):
     """K1 and K3 at T = 1..32 and windows from 5 px to the largest
     (register path up to wsize 11, recomputing path above)."""
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     b = 32 if wsize <= 13 else 4
     _check_fans(atlas, *_fan_case(atlas, t, wsize, seed=t * 100 + wsize,
                                   b=b), wsize)
@@ -172,7 +177,7 @@ def test_fan_kernels_at_the_atlas_end(setup, wsize):
 
 
 def test_fan_kernels_without_ok_probes(setup):
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     vid, org, frames, ok = _fan_case(atlas, 6, 7, seed=5)
     ok = torch.zeros_like(ok)
     _check_fans(atlas, vid, org, frames, ok, 7)
@@ -195,7 +200,7 @@ def test_fan_kernels_on_flat_windows(setup, near):
 
 
 def test_fan_wrappers_reject_unsupported_shapes(setup):
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     vid, org, frames, ok = _fan_case(atlas, 6, 7, seed=9, b=2)
     for wsize in (0, F1.MAX_WSIZE + 1):
         with pytest.raises(ValueError):
@@ -213,7 +218,7 @@ def _blocks(s):
     starts, relx, rely, ok = grab_block_geometry(
         s["cams"], s["pyr"], 0, 7, s["coord"], px, py, s["normal"],
         s["views"], s["valid"])
-    return (s["pyr"].atlas_u8, starts, relx, rely, ok.reshape(-1))
+    return (s["pyr"].atlas_k, starts, relx, rely, ok.reshape(-1))
 
 
 def test_incc_blocks_kernel_matches_plain(setup):
@@ -221,10 +226,10 @@ def test_incc_blocks_kernel_matches_plain(setup):
     args = list(_blocks(s))
     args[4] = args[4].clone()
     args[4][::7] = False              # failed grabs, some of them slot 0
-    before = incc.incc_blocks.launches
+    before = _n("incc_blocks")
     got = incc.incc_blocks(*args, t=T)
     torch.cuda.synchronize()
-    assert incc.incc_blocks.launches == before + 1
+    assert _n("incc_blocks") == before + 1
     want = incc.incc_blocks_plain(*args, t=T)
     assert bool((want == 2.0).any()) and bool((want[:, 0] == 0.0).any())
     assert float((got - want).abs().max()) <= 1e-4
@@ -238,17 +243,17 @@ def test_cuda_paths_launch_their_kernels(setup, monkeypatch):
                            s["views"], s["valid"],
                            torch.ones(B, device=s["dev"]), 3)
     args = (s["cams"], s["pyr"], 0, 7, prob, s["coord"], s["normal"])
-    k1, k3, k4 = (fan2.incc_fan.launches, F1.incc_fan_v1.launches,
-                  incc.incc_blocks.launches)
+    k1, k3, k4 = (_n("incc_fan"), _n("incc_fan_v1"),
+                  _n("incc_blocks"))
     central = TR.per_view_inccs(*args, use_fan=False)[0]
-    assert incc.incc_blocks.launches == k4 + 1
+    assert _n("incc_blocks") == k4 + 1
     v2 = TR.per_view_inccs(*args)[0]
-    assert fan2.incc_fan.launches == k1 + 1
+    assert _n("incc_fan") == k1 + 1
     monkeypatch.setattr(TR, "USE_FAN_V2", False)
     v1 = TR.per_view_inccs(*args)[0]
-    assert F1.incc_fan_v1.launches == k3 + 1
-    assert fan2.incc_fan.launches == k1 + 1
-    assert incc.incc_blocks.launches == k4 + 1
+    assert _n("incc_fan_v1") == k3 + 1
+    assert _n("incc_fan") == k1 + 1
+    assert _n("incc_blocks") == k4 + 1
     torch.cuda.synchronize()
     for got in (v2, v1):
         m = got < 2.0
@@ -258,10 +263,10 @@ def test_cuda_paths_launch_their_kernels(setup, monkeypatch):
 def test_windows_kernel_matches_plain(setup):
     s = setup
     args = _blocks(s)
-    before = W.windows.launches
+    before = _n("windows")
     got = W.windows(*args, t=T)
     torch.cuda.synchronize()
-    assert W.windows.launches == before + 1
+    assert _n("windows") == before + 1
     want = W.windows_plain(*args, t=T)
     assert float((got - want).abs().max()) <= 1e-4
 
@@ -299,15 +304,21 @@ def _block_case(atlas, t, s2, seed, b=32, edge=False, inside=False):
             d(ok, torch.bool))
 
 
-def _check_blocks(args, t):
-    """K2 and K4 against their plain versions on every pair, failed ones
-    included, at 1e-4."""
-    got = _launched(W.windows, *args, t=t)
-    want = W.windows_plain(*args, t=t)
+def _check_blocks(args, t, blocked=True):
+    """K2 and K4 (the instantiation for the atlas's dtype and `blocked`)
+    against their plain versions on every pair, failed ones included, at
+    1e-4."""
+    name = "" if blocked else "_unblocked"
+    name += "_f32" if args[0].dtype == torch.float32 else ""
+    before = (_n("windows" + name), _n("incc_blocks" + name))
+    got = _launched(W.windows, *args, t=t, blocked=blocked)
+    want = W.windows_plain(*args, t=t, blocked=blocked)
     assert float((got - want).abs().max()) <= 1e-4
-    got = _launched(incc.incc_blocks, *args, t=t)
-    want = incc.incc_blocks_plain(*args, t=t)
+    got = _launched(incc.incc_blocks, *args, t=t, blocked=blocked)
+    want = incc.incc_blocks_plain(*args, t=t, blocked=blocked)
     assert float((got - want).abs().max()) <= 1e-4
+    assert (_n("windows" + name), _n("incc_blocks" + name)) == (
+        before[0] + 1, before[1] + 1)
     return got
 
 
@@ -316,7 +327,7 @@ def _check_blocks(args, t):
 def test_block_kernels_edge_shapes(setup, t, wsize):
     """K2 and K4 at T = 1..32 and windows from 5 px to the largest
     (register path up to wsize 11, recomputing path above)."""
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     b = 32 if wsize <= 13 else 4
     incc4 = _check_blocks(_block_case(atlas, t, wsize * wsize,
                                       seed=t * 100 + wsize, b=b), t)
@@ -360,7 +371,7 @@ def test_block_kernels_inner_path(setup, t, wsize):
 
 
 def test_block_kernels_without_ok_pairs(setup):
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     args = list(_block_case(atlas, 6, 49, seed=5))
     args[4] = torch.zeros_like(args[4])
     _check_blocks(args, 6)
@@ -381,7 +392,7 @@ def test_block_kernels_on_flat_windows(setup, near):
 
 
 def test_block_wrappers_reject_unsupported_shapes(setup):
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     for s2 in (0, W.MAX_WSIZE ** 2 + 1):
         args = _block_case(atlas, 6, s2, seed=9, b=2)
         with pytest.raises(ValueError):
@@ -402,7 +413,7 @@ def ablation(setup):
     random tiles (some past the atlas edge), sample positions reaching
     2 px past their tile."""
     dev = setup["dev"]
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     ty, tx = F1.tile_counts(atlas.shape[1], atlas.shape[2])
     rng = np.random.default_rng(3)
     b = 16
@@ -428,10 +439,13 @@ def ablation(setup):
 
 
 def _launched(wrapper, *args, **kw):
-    before = wrapper.launches
+    """wrapper(*args, **kw), which must launch one kernel: K1-K4 count
+    by instantiation (wrapper.entries), K5-K7 on the wrapper."""
+    counters = list(getattr(wrapper, "entries", {}).values()) or [wrapper]
+    before = sum(c.launches for c in counters)
     out = wrapper(*args, **kw)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert sum(c.launches for c in counters) == before + 1
     return out
 
 
@@ -540,7 +554,7 @@ def _check_k7(atlas, tilemap, frames, wsize, modes=A.MOMENTS_ABL_MODES):
 def test_incc_fan_abl_kernel_shapes(setup, mode, t, wsize):
     """K5 at T = 1..32 on the register path (wsize 7) and the
     recomputing one (wsize 13)."""
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     tilemap, geom, _ = _abl_case(atlas, 8, t, wsize, seed=t * 10 + wsize)
     _check_k5(atlas, tilemap, geom, wsize, (mode,))
 
@@ -550,7 +564,7 @@ def test_incc_fan_abl_kernel_shapes(setup, mode, t, wsize):
 @pytest.mark.parametrize("mode", A.MOMENTS_ABL_MODES)
 def test_moments_abl_kernel_shapes(setup, mode, t, wsize):
     """K7 at T = 1..32, one and two samples a lane, fan 4 and 1."""
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     tilemap, _, frames = _abl_case(atlas, 8, t, wsize, seed=t * 10 + wsize)
     _check_k7(atlas, tilemap, frames, wsize, (mode,))
 
@@ -617,7 +631,7 @@ def _check_k6(atlas, tilemap, rel, modes=A.INTERP_ABL_MODES, ppv=4):
 def test_interp_abl_kernel_window_sizes(setup, mode, s2):
     """K6 at 25, 49 and 63 samples a window (runs of four samples that
     cross windows and pairs), full-size and tiny outputs."""
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     tilemap, rel = _k6_case(atlas, 8, 6, 4, s2, seed=s2)
     _check_k6(atlas, tilemap, rel, (mode,))
 
@@ -626,7 +640,7 @@ def test_interp_abl_kernel_scalar_paths(setup):
     """A sample count that is not a multiple of four (105: the last
     thread's tail; tiny with groups of one patch) and positions one float
     past a 16-byte boundary (no float4)."""
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     tilemap, rel = _k6_case(atlas, 5, 3, 1, 7, seed=1)
     assert not A.interp_abl_vector(rel, rel, False)
     _check_k6(atlas, tilemap, rel, ppv=1)
@@ -641,7 +655,7 @@ def test_interp_abl_kernel_scalar_paths(setup):
 def test_interp_abl_kernel_one_window_a_patch(setup):
     """T = fan = 1: the tiny output keeps the one window of each group's
     first patch, as the plain version does."""
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     tilemap, rel = _k6_case(atlas, 4, 1, 1, 7, seed=3)
     _check_k6(atlas, tilemap, rel)
 
@@ -666,7 +680,7 @@ def test_interp_abl_kernel_at_the_atlas_edges(setup, s2):
 
 
 def test_ablation_wrappers_reject_unsupported_shapes(setup):
-    atlas = setup["pyr"].atlas_u8
+    atlas = setup["pyr"].atlas_k
     tilemap, geom, frames = _abl_case(atlas, 4, 6, 7, seed=1)
     for wsize in (0, A.FAN_ABL_MAX_WSIZE + 1):
         with pytest.raises(ValueError):
@@ -683,7 +697,7 @@ def test_ablation_wrappers_reject_unsupported_shapes(setup):
 
 def test_wrappers_reject_bad_arguments(setup):
     s = setup
-    atlas = s["pyr"].atlas_u8
+    atlas = s["pyr"].atlas_k
     vid = torch.zeros((2, T), dtype=torch.int32, device=s["dev"])
     frames = torch.zeros((2, T, 1, 6), device=s["dev"])
     ok = torch.ones((2, T, 1), dtype=torch.bool, device=s["dev"])
@@ -813,3 +827,230 @@ def test_run_cmvs_card_equals_cpu(tmp_path):
         assert filecmp.cmp(os.path.join(runs["cpu"][0], n),
                            os.path.join(runs["cuda"][0], n),
                            shallow=False), n
+
+
+# ---- float32 (gamma-decoded) atlases and the unblocked rule ----------------
+
+def _gamma(a):
+    """A float32 atlas of (v / 255) ** 2.2, as build_pyramids(gamma=2.2)
+    decodes bytes."""
+    return ((a.float() / 255.0) ** 2.2).contiguous()
+
+
+def _shifted(atlas, by):
+    """A copy of `atlas` starting `by` elements past an aligned address."""
+    buf = torch.zeros(atlas.numel() + by, dtype=atlas.dtype,
+                      device=atlas.device)
+    out = buf[by:].view(atlas.shape)
+    out.copy_(atlas)
+    return out
+
+
+def test_float_atlas_selects_its_instantiations(setup):
+    """A gamma pyramid's atlas_k is its float32 atlas; the wrappers launch
+    the _f32 instantiations on it and the uint8 ones on a byte atlas, and
+    raise on any other dtype."""
+    s = setup
+    pyr = build_pyramids([np.asarray(s["pyr"].atlas[0, :240, :320].cpu(),
+                                     np.uint8)] * 2, None, 3,
+                         device=s["dev"], gamma=2.2)
+    assert not pyr.byte_valued and pyr.atlas_k.dtype == torch.float32
+    atlas = pyr.atlas_k
+    vid, org, frames, ok = _fan_case(atlas, 6, 7, seed=11, b=4)
+    k1, k1f = _n("incc_fan"), _n("incc_fan_f32")
+    fan2.incc_fan(atlas, vid, frames, ok, 7)
+    assert (_n("incc_fan"), _n("incc_fan_f32")) == (k1, k1f + 1)
+    with pytest.raises(TypeError):
+        fan2.incc_fan(atlas.double(), vid, frames, ok, 7)
+    with pytest.raises(TypeError):
+        W.windows(atlas.half(), *_block_case(atlas, 6, 49, seed=1, b=2)[1:],
+                  t=6)
+
+
+@pytest.mark.parametrize("wsize", [5, 7, 11, 13, F1.MAX_WSIZE])
+@pytest.mark.parametrize("t", [1, 6, 32])
+def test_fan_kernels_float_atlas(setup, t, wsize):
+    """K1 and K3 on a gamma-decoded float32 atlas at T 1/6/32, wsize 5-63
+    (register and recomputing paths)."""
+    atlas = _gamma(setup["pyr"].atlas_k)
+    b = 32 if wsize <= 13 else 4
+    before = (_n("incc_fan_f32"), _n("incc_fan_v1_f32"))
+    _check_fans(atlas, *_fan_case(atlas, t, wsize, seed=t * 10 + wsize,
+                                  b=b), wsize)
+    assert (_n("incc_fan_f32"), _n("incc_fan_v1_f32")) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("wsize", [7, 13])
+def test_fan_kernels_float_atlas_ends(setup, wsize):
+    """Float windows reaching the atlas's last rows, columns and values
+    (no load may pass the allocation), on an atlas 69 px wide (rows start
+    off 8-byte alignment) as it is and shifted by one float."""
+    rng = np.random.default_rng(wsize + 40)
+    atlas = _gamma(torch.tensor(rng.integers(0, 256, (3, 50, 69, 3),
+                                             np.uint8), device=setup["dev"]))
+    for a in (atlas, _shifted(atlas, 1)):
+        _check_fans(a, *_fan_case(a, 6, wsize, seed=wsize, edge=True),
+                    wsize)
+
+
+@pytest.mark.parametrize("near", [False, True])
+def test_fan_kernels_on_dark_float_windows(setup, near):
+    """Dark, flat and nearly flat gamma windows: values near (2/255)^2.2 ~
+    2e-5 with variances down to ~1e-12, where a variance taken as a
+    difference of sums would lose its digits."""
+    rng = np.random.default_rng(17)
+    img = np.full((3, 40, 60, 3), 2, np.uint8)
+    if near:
+        img[rng.random(img.shape[:3]) < 0.05] += 1
+    atlas = _gamma(torch.tensor(img, device=setup["dev"]))
+    vid, org, frames, ok = _fan_case(atlas, 6, 7, seed=18)
+    frames[..., 0:2] = frames[..., 0:2].clamp(6.0, 30.0)
+    _check_fans(atlas, vid, torch.zeros_like(org), frames, ok, 7)
+
+
+@pytest.mark.parametrize("blocked", [True, False])
+@pytest.mark.parametrize("wsize", [5, 7, 11, 13, W.MAX_WSIZE])
+@pytest.mark.parametrize("t", [1, 6, 32])
+def test_block_kernels_float_and_unblocked(setup, t, wsize, blocked):
+    """K2 and K4 at T 1/6/32, wsize 5-63: the float32 instantiations
+    (blocked and unblocked) and the uint8 unblocked one; taps past the
+    block are read under the unblocked rule."""
+    atlas = setup["pyr"].atlas_k
+    b = 32 if wsize <= 13 else 4
+    args = _block_case(atlas, t, wsize * wsize, seed=t * 7 + wsize, b=b)
+    if not blocked:
+        _check_blocks(args, t, blocked=False)
+    _check_blocks((_gamma(atlas),) + args[1:], t, blocked=blocked)
+
+
+@pytest.mark.parametrize("blocked", [True, False])
+@pytest.mark.parametrize("wsize", [7, 13])
+def test_block_kernels_float_and_unblocked_ends(setup, wsize, blocked):
+    """Windows at the atlas's last rows, columns and bytes and, through
+    the inner-path case, on its first rows; uint8 (unblocked) and float32
+    atlases 69 px wide (rows off 8-byte alignment), as they are and
+    shifted (5 bytes; one float). Unblocked blocks start up to 3 px
+    before the atlas's last k rows and columns rather than inside them:
+    their taps still reach the last row and column (and are clamped
+    there), but no window collapses onto the corner pixel, whose
+    normalized window would be rounding noise."""
+    rng = np.random.default_rng(wsize + 60)
+    u8 = torch.tensor(rng.integers(0, 256, (3, 50, 69, 3), np.uint8),
+                      device=setup["dev"])
+    f32 = _gamma(u8)
+    atlases = [f32, _shifted(f32, 1)]
+    if not blocked:
+        atlases += [u8, _shifted(u8, 5)]
+    for a in atlases:
+        args = _block_case(a, 6, wsize * wsize, seed=wsize, edge=True)
+        if not blocked:
+            args[1][:, 1:] -= 3
+        _check_blocks(args, 6, blocked)
+        _check_blocks(_block_case(a, 6, wsize * wsize, seed=wsize + 1,
+                                  b=16, inside=True), 6, blocked)
+
+
+@pytest.mark.parametrize("near", [False, True])
+def test_block_kernels_on_dark_float_windows(setup, near):
+    """Dark gamma windows, flat and nearly flat (see the fan kernels'
+    test). Flat, only the blocked rule: its masked taps past the block
+    give the window a real variance, where an unblocked flat window's
+    samples differ by their rounding alone and its normalized values are
+    that noise, in any summation order."""
+    rng = np.random.default_rng(19)
+    img = np.full((3, 40, 60, 3), 2, np.uint8)
+    if near:
+        img[rng.random(img.shape[:3]) < 0.05] += 1
+    atlas = _gamma(torch.tensor(img, device=setup["dev"]))
+    for blocked in (True, False) if near else (True,):
+        _check_blocks(_block_case(atlas, 6, 49, seed=20), 6, blocked)
+
+
+def _rounding_level_bounds(tex, incc4, ok, t):
+    """What ops/texture.normalize_tex (and csrc/common.cuh) state for
+    windows whose variance is rounding noise: finite, each ok window's sum
+    of squares 0 or 3 * S2, failed windows zeros; so K4's robust INCC of
+    an ok pair lies in [0, 2/7] (1 - NCC in [0, 2]), 2.0 elsewhere."""
+    s2 = tex.shape[2]
+    okb = ok.reshape(-1, t)
+    sq = (tex.double() ** 2).sum((2, 3))
+    assert bool(torch.isfinite(tex).all() & torch.isfinite(incc4).all())
+    assert bool((sq[~okb] == 0).all())
+    full = (sq - 3 * s2).abs() <= 1e-3 * 3 * s2
+    assert bool(((sq == 0) | full)[okb].all())
+    pair = okb & okb[:, 0:1]
+    pair[:, 0] = False
+    assert bool(((incc4 >= -1e-5) & (incc4 <= 2 / 7 + 1e-5))[pair].all())
+    rest = ~pair
+    rest[:, 0] = False
+    assert bool((incc4[rest] == 2.0).all())
+    assert torch.equal(incc4[:, 0], torch.where(okb[:, 0], 0.0, 2.0))
+
+
+@pytest.mark.parametrize("case", ["corner_u8", "corner_f32", "flat_f32"])
+def test_unblocked_rounding_level_windows(setup, case):
+    """Unblocked windows whose samples differ by their rounding alone:
+    every tap clamped onto the atlas's last pixel (blocks starting on the
+    last row and column, taps past it), or a flat dark gamma atlas. Their
+    normalized values are unspecified (ops/texture.normalize_tex), so
+    K2, K4 and their plain versions are each held to what is stated:
+    finite, unit variance or zeros, K4 in its range. Where the taps all
+    read one pixel, both K2 and the plain version see a variance of
+    rounding noise or exactly 0."""
+    rng = np.random.default_rng(23)
+    t, s2 = 6, 49
+    if case == "flat_f32":
+        atlas = _gamma(torch.full((3, 40, 60, 3), 2, dtype=torch.uint8,
+                                  device=setup["dev"]))
+        args = _block_case(atlas, t, s2, seed=24)
+    else:
+        u8 = torch.tensor(rng.integers(0, 256, (3, 50, 69, 3), np.uint8),
+                          device=setup["dev"])
+        atlas = u8 if case == "corner_u8" else _gamma(u8)
+        n, h, wa, _ = atlas.shape
+        args = list(_block_case(atlas, t, s2, seed=25))
+        args[1][:] = torch.tensor([n - 1, h - 1, wa - 1], dtype=torch.int32,
+                                  device=atlas.device)
+        args[2].uniform_(0.0, 6.0)
+        args[3].uniform_(0.0, 6.0)
+        args = tuple(args)
+    name = "_unblocked" + ("_f32" if atlas.dtype == torch.float32 else "")
+    before = (_n("windows" + name), _n("incc_blocks" + name))
+    tex = _launched(W.windows, *args, t=t, blocked=False)
+    incc4 = _launched(incc.incc_blocks, *args, t=t, blocked=False)
+    assert (_n("windows" + name), _n("incc_blocks" + name)) == (
+        before[0] + 1, before[1] + 1)
+    _rounding_level_bounds(tex, incc4, args[4], t)
+    _rounding_level_bounds(W.windows_plain(*args, t=t, blocked=False),
+                           incc.incc_blocks_plain(*args, t=t,
+                                                  blocked=False),
+                           args[4], t)
+
+
+def test_unblocked_windows_equal_bilinear_color(setup):
+    """K2 unblocked on grab_block_geometry's geometry samples what
+    grab_tex's unblocked bilinear_color samples (block windows whose taps
+    stay inside their blocks agree bit for bit with the blocked K2)."""
+    from cmvs_pmvs_tpu_torch.ops import texture
+    s = setup
+    args = _blocks(s)
+    got = _launched(W.windows, *args, t=T, blocked=False)
+    blocked = W.windows(*args, t=T)
+    px, py = _patch_axes(s["cams"], 0, s["views"][:, 0].long(), s["coord"],
+                         s["normal"])
+    saved = texture._USE_BLOCK_SAMPLING
+    texture._USE_BLOCK_SAMPLING = False
+    try:
+        tex, ok = texture.grab_tex(s["cams"], s["pyr"], 0, 7, s["coord"],
+                                   px, py, s["normal"], s["views"],
+                                   s["valid"])
+    finally:
+        texture._USE_BLOCK_SAMPLING = saved
+    want = texture.normalize_tex(tex, ok)
+    assert float((got - want).abs().max()) <= 1e-4
+    inside = ((args[2] >= 0) & (args[2] <= W.BLOCK_K - 1.001)
+              & (args[3] >= 0) & (args[3] <= W.BLOCK_K - 1.001)).all(1)
+    assert bool(inside.any())
+    assert torch.equal(got.reshape(-1, 49, 3)[inside],
+                       blocked.reshape(-1, 49, 3)[inside])

@@ -99,7 +99,7 @@ def test_incc_fan_plain_matches_pallas_kernel(setup, fan):
     fr[..., 0] += ((tm & 0x3FF) * TILE_STRIDE)[..., None]
     fr[..., 1] += (((tm >> 10) & 0x3FF) * TILE_STRIDE)[..., None]
     fr[~okn] = 0.0
-    got = fan2.incc_fan(s["tp"].atlas_u8, torch.tensor(tm >> 20),
+    got = fan2.incc_fan(s["tp"].atlas_k, torch.tensor(tm >> 20),
                         torch.tensor(fr.astype(np.float32)),
                         torch.tensor(okn), 7).numpy()
     pair = okn & okn[:, 0:1, :]

@@ -103,7 +103,7 @@ def test_incc_fan_v1_plain_matches_pallas_kernel(setup, fan):
     s = setup
     cf, nf = _probes(s, [0.3 * k for k in range(fan)])
     want, vid, org, frames, ok = _jax_v1(s, cf, nf)
-    got = TF.incc_fan_v1(s["tp"].atlas_u8, vid, org, frames, ok, 7).numpy()
+    got = TF.incc_fan_v1(s["tp"].atlas_k, vid, org, frames, ok, 7).numpy()
     pair = ok.numpy() & ok.numpy()[:, 0:1, :]
     assert pair.mean() > 0.9
     assert np.abs(got - want)[pair].max() <= 1e-4
@@ -142,11 +142,11 @@ def test_probe_leaving_its_tile_matches_jax(setup):
     stats = {}
     TF.incc_fan_v1.clip_stats = stats
     try:
-        got = TF.incc_fan_v1(s["tp"].atlas_u8, vid, org, frames, ok,
+        got = TF.incc_fan_v1(s["tp"].atlas_k, vid, org, frames, ok,
                              7).numpy()
     finally:
         TF.incc_fan_v1.clip_stats = None
-    k1 = incc_fan_plain(s["tp"].atlas_u8, vid, frames, ok, 7).numpy()
+    k1 = incc_fan_plain(s["tp"].atlas_k, vid, frames, ok, 7).numpy()
     pair = ok.numpy() & ok.numpy()[:, 0:1, :]
     left = pair & (np.abs(got - k1) > 1e-3)
     assert left.sum() >= 1 and int(stats["clipped"]) >= int(left.sum())
@@ -161,12 +161,12 @@ def test_incc_fan_v1_wrapper_runs_plain_on_cpu(setup):
     vid, org, frames, ok = TF.grab_frames(
         s["tc"], s["tp"], 0, 7, torch.tensor(s["views"]),
         torch.tensor(s["valid"]), torch.tensor(cf), torch.tensor(nf))
-    before = TF.incc_fan_v1.launches
-    out = TF.incc_fan_v1(s["tp"].atlas_u8, vid, org, frames, ok, 7)
+    before = [e.launches for e in TF.incc_fan_v1.entries.values()]
+    out = TF.incc_fan_v1(s["tp"].atlas_k, vid, org, frames, ok, 7)
     np.testing.assert_array_equal(
-        out.numpy(), TF.incc_fan_v1_plain(s["tp"].atlas_u8, vid, org,
+        out.numpy(), TF.incc_fan_v1_plain(s["tp"].atlas_k, vid, org,
                                           frames, ok, 7).numpy())
-    assert TF.incc_fan_v1.launches == before
+    assert [e.launches for e in TF.incc_fan_v1.entries.values()] == before
 
 
 def _offsets(s, coord):

@@ -13,8 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from cmvs_pmvs_tpu_torch.ops import fan as F1, fan2, incc  # noqa: E402
-from cmvs_pmvs_tpu_torch.ops import windows as W  # noqa: E402
+from cmvs_pmvs_tpu_torch.ops import fan as F1, fan2, kernels  # noqa: E402
+# imported for the K2/K4 Entries they add to kernels.ENTRIES
+from cmvs_pmvs_tpu_torch.ops import incc, windows  # noqa: E402,F401
 
 CSRC = Path(F1.__file__).resolve().parents[1] / "csrc" / "common.cuh"
 
@@ -71,18 +72,21 @@ def test_v1_plain_equals_v2_plain_inside_the_tile(seed):
 def test_capture_is_off_and_keeps_no_cpu_call():
     """The capture lists are None by default, and a CPU call (the plain
     version) is neither counted nor kept."""
-    wrappers = (fan2.incc_fan, F1.incc_fan_v1, W.windows, incc.incc_blocks)
+    wrappers = list(kernels.ENTRIES.values())
+    assert len(wrappers) == 12
     assert all(w.capture is None for w in wrappers)
     atlas, vid, org, frames, ok = _inside_tile_case(2)
-    before = (fan2.incc_fan.launches, F1.incc_fan_v1.launches)
+    before = [w.launches for w in wrappers]
     try:
-        fan2.incc_fan.capture, F1.incc_fan_v1.capture = [], []
+        for w in wrappers:
+            w.capture = []
         got = fan2.incc_fan(atlas, vid, frames, ok, 7)
         got_v1 = F1.incc_fan_v1(atlas, vid, org, frames, ok, 7)
-        assert fan2.incc_fan.capture == [] and F1.incc_fan_v1.capture == []
+        assert all(w.capture == [] for w in wrappers)
     finally:
-        fan2.incc_fan.capture, F1.incc_fan_v1.capture = None, None
-    assert (fan2.incc_fan.launches, F1.incc_fan_v1.launches) == before
+        for w in wrappers:
+            w.capture = None
+    assert [w.launches for w in wrappers] == before
     assert torch.equal(got, fan2.incc_fan_plain(atlas, vid, frames, ok, 7))
     assert torch.equal(got_v1, F1.incc_fan_v1_plain(atlas, vid, org,
                                                     frames, ok, 7))

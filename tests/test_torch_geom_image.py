@@ -133,7 +133,7 @@ def test_pyramid_bit_exact(with_masks):
                  "xoff"):
         np.testing.assert_array_equal(getattr(tp, name).numpy(),
                                       np.asarray(getattr(jp, name)))
-    np.testing.assert_array_equal(tp.atlas_u8.numpy(),
+    np.testing.assert_array_equal(tp.atlas_k.numpy(),
                                   np.asarray(jp.atlas).astype(np.uint8))
 
 

@@ -78,7 +78,7 @@ def geom():
 
 
 def _args(g):
-    return (g["tp"].atlas_u8, torch.tensor(g["starts"]),
+    return (g["tp"].atlas_k, torch.tensor(g["starts"]),
             torch.tensor(g["relx"]), torch.tensor(g["rely"]),
             torch.tensor(g["ok"]))
 
@@ -148,8 +148,8 @@ def test_use_fan_flag_selects_the_lm_path(geom, monkeypatch):
 
 
 def test_incc_blocks_wrapper_runs_plain_on_cpu(geom):
-    before = incc_blocks.launches
+    before = [e.launches for e in incc_blocks.entries.values()]
     out = incc_blocks(*_args(geom), t=T)
     np.testing.assert_array_equal(out.numpy(),
                                   incc_blocks_plain(*_args(geom), t=T).numpy())
-    assert incc_blocks.launches == before
+    assert [e.launches for e in incc_blocks.entries.values()] == before

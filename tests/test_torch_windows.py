@@ -72,7 +72,7 @@ def geom():
 
 
 def _plain(g, relx=None):
-    return windows_plain(g["tp"].atlas_u8, torch.tensor(g["starts"]),
+    return windows_plain(g["tp"].atlas_k, torch.tensor(g["starts"]),
                          torch.tensor(g["relx"] if relx is None else relx),
                          torch.tensor(g["rely"]),
                          torch.tensor(g["ok"].reshape(-1)), t=N).numpy()
@@ -130,9 +130,9 @@ def test_block_geometry_matches_jax(geom):
 
 
 def test_windows_wrapper_runs_plain_on_cpu(geom):
-    before = windows.launches
-    out = windows(geom["tp"].atlas_u8, torch.tensor(geom["starts"]),
+    before = [e.launches for e in windows.entries.values()]
+    out = windows(geom["tp"].atlas_k, torch.tensor(geom["starts"]),
                   torch.tensor(geom["relx"]), torch.tensor(geom["rely"]),
                   torch.tensor(geom["ok"].reshape(-1)), t=N)
     np.testing.assert_array_equal(out.numpy(), _plain(geom))
-    assert windows.launches == before
+    assert [e.launches for e in windows.entries.values()] == before
