@@ -107,6 +107,15 @@ raises on failure (the script then exits non-zero):
    (no K1-K4 launch, the cloud on the card). Each run launches exactly
    its instantiations, meets phase 5's accuracy bars and at least half
    the default depth-1 count; every switch is restored after each run.
+14. The run-and-diagnose drivers (cmvs_pmvs_tpu_torch/scripts), every
+   kernel counter zeroed before and read after, K1, K2 and K3 required:
+   verify_e2e (PASS required); profile_wave's capture of 3 bench waves
+   under torch.profiler (K1's kernel must be among the device ops,
+   1 + 8 times a wave, as its counter says); profile_e2e on the full
+   protocol with its seed, expand and filter spans profiled (device ops
+   in each; busy shares logged); run_full, cold then warm (phase 5's
+   bars; its line also written to build/run_full.json); bench_fan2 (K3
+   against K1, which must agree within 1e-4); ab_broyden's kernel A/B.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -909,11 +918,9 @@ def kernel_wrappers():
 
 
 def atlas_entries() -> dict:
-    """Every K1-K4 instantiation's Entry by name (ops/kernels.ENTRIES,
-    which the four wrapper modules fill when they are imported)."""
-    from cmvs_pmvs_tpu_torch.ops import fan, fan2, incc, windows  # noqa
-    from cmvs_pmvs_tpu_torch.ops.kernels import ENTRIES
-    return dict(ENTRIES)
+    """Every K1-K4 instantiation's Entry by name (ops/kernels.entries)."""
+    from cmvs_pmvs_tpu_torch.ops.kernels import entries
+    return entries()
 
 
 def launcher(name: str):
@@ -1726,6 +1733,93 @@ def phase_variants(dev, scene, root, n_default: int,
     return runs
 
 
+def phase_drivers(dev) -> dict:
+    """Phase 14: the run-and-diagnose drivers (cmvs_pmvs_tpu_torch/
+    scripts) on the card, every kernel counter zeroed just before and
+    read just after; K1, K2 and K3 must launch. Each driver's result is
+    logged on a line of its own; any failure raises."""
+    import torch
+    from cmvs_pmvs_tpu_torch.scripts import (ab_broyden, bench_fan2,
+                                             profile_e2e, profile_wave,
+                                             profiling, run_full,
+                                             verify_e2e)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t00 = time.time()
+
+    t0 = time.time()
+    v = verify_e2e.verify(device=dev)
+    log(f"drivers: verify_e2e {json.dumps(v)} ({time.time() - t0:.2f} s)")
+    if v["verify"] != "PASS":
+        raise AssertionError(f"verify_e2e: {v}")
+
+    t0 = time.time()
+    wv = profile_wave.capture(device=dev)
+    log(profiling.format_summary(wv["summary"], top=12))
+    log(f"drivers: profile_wave "
+        f"{json.dumps({k: x for k, x in wv.items() if k != 'summary'})} "
+        f"({time.time() - t0:.2f} s)")
+    need = wv["k1_expected_per_wave"]
+    if not (wv["k1_kernels"] and wv["k1_device_ops_per_wave"] == need
+            and wv["k1_launches_per_wave"] == need):
+        raise AssertionError(
+            f"profile_wave: K1 ({profile_wave.K1_KERNEL.pattern}) not among "
+            f"the device ops {need} times a wave: {wv['k1_kernels']}, "
+            f"{wv['k1_device_ops_per_wave']} device ops, "
+            f"{wv['k1_launches_per_wave']} launches a wave")
+
+    t0 = time.time()
+    root = os.path.join(ROOT, "build", "chip_smoke_profile")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        profile_e2e.write_tree(root, profile_e2e.FULL)
+        pe = profile_e2e.profile(root, profile_e2e.FULL, dev,
+                                 profile_phases=("seed", "expand",
+                                                 "filter"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(profile_e2e.report(pe, top=25))
+    shares = {ph: round(sm["busy_share"], 4)
+              for ph, sm in pe["profile"].items()}
+    log(f"drivers: profile_e2e --full --profile-phase seed expand filter: "
+        f"{pe['patches']} patches, busy shares {shares} "
+        f"({time.time() - t0:.2f} s)")
+    if not all(sm["device_ops"] > 0 for sm in pe["profile"].values()):
+        raise AssertionError("profile_e2e: a profiled phase shows no device "
+                             "ops")
+    del pe
+
+    t0 = time.time()
+    rf = run_full.run(profile_e2e.FULL, dev, log=log)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "run_full.json"), "w") as f:
+        f.write(json.dumps(rf) + "\n")
+    log(f"drivers: run_full {json.dumps(rf)} ({time.time() - t0:.2f} s)")
+    if not rf["bars"]["ok"]:
+        raise AssertionError(f"run_full: bars missed: {rf['bars']}")
+
+    t0 = time.time()
+    bf = bench_fan2.bench(dev, log=log)
+    log(f"drivers: bench_fan2 {json.dumps(bf)} ({time.time() - t0:.2f} s)")
+
+    t0 = time.time()
+    ab = ab_broyden.kernel_ab(device=dev, log=log)
+    log(f"drivers: ab_broyden kernel {json.dumps(ab)} "
+        f"({time.time() - t0:.2f} s)")
+
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    used = {k: n for k, n in launches.items() if n}
+    log(f"drivers: kernel launches {used}; phase 14 "
+        f"{time.time() - t00:.2f} s")
+    if any(launches[k] <= 0 for k in ("incc_fan", "windows", "incc_fan_v1")):
+        raise AssertionError(f"drivers: K1, K2 or K3 did not launch: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -1798,6 +1892,7 @@ def main() -> int:
                                variants))
     shutil.rmtree(root, ignore_errors=True)
     log(f"variants: phase 13 {time.time() - t0:.2f} s")
+    runs["drivers"] = phase_drivers(dev)
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",

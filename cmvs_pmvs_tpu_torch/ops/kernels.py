@@ -171,6 +171,28 @@ class Entry:
             self.capture.append((args, kwargs))
 
 
+def entries() -> dict:
+    """Every K1-K4 instantiation's Entry by name, once the four wrapper
+    modules that make them are imported."""
+    from . import fan, fan2, incc, windows  # noqa: F401 (their Entries)
+    return dict(ENTRIES)
+
+
+def launch_counts() -> dict:
+    """A snapshot of every K1-K4 instantiation's launch count by name. Code
+    that counts the launches of a stretch of work takes the difference of
+    two snapshots (`launches_since`) and leaves the counters alone, so a
+    caller counting around it still reads every launch."""
+    return {k: e.launches for k, e in entries().items()}
+
+
+def launches_since(before: dict) -> dict:
+    """The launches of each instantiation since the snapshot `before`
+    (`launch_counts()`), those that launched only."""
+    return {k: n - before.get(k, 0) for k, n in launch_counts().items()
+            if n - before.get(k, 0)}
+
+
 def entry_for(entries: dict, key, name: str) -> Entry:
     """The instantiation of `entries` for `key` (an atlas dtype, or (dtype,
     blocked)); raise on a key the kernel is not built for."""

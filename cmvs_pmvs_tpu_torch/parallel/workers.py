@@ -22,9 +22,8 @@ _QUIET = dict(log=lambda *a: None)
 
 
 def _wrappers():
-    from ..ops import fan, fan2, incc, windows  # noqa: F401 (their Entries)
-    from ..ops.kernels import ENTRIES
-    return ENTRIES
+    from ..ops.kernels import entries
+    return entries()
 
 
 def _zero_launches():

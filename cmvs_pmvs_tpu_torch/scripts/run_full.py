@@ -1,0 +1,144 @@
+"""The full reconstruction protocol, cold then warm, with phase seconds.
+
+Port of scripts/run_full.py: the occluded scene at 12 x 640x480 (mask
+border 8, setEdge 0.4), level 0, csize 2, expand_iters 3 to the fixpoint
+of 12 waves, 8-iteration refine, p_cap 200,000 (`profile_e2e.FULL`), run
+twice in one process through `PMVSEngine.run`: the first run pays the
+process's one-time costs (allocator growth, kernel library load), the
+second is the steady one. Each run's kernel launches are the counters'
+difference across it; the counters themselves are left alone.
+
+It prints one JSON line and writes it to `--out` (default
+build/run_full.json), and nothing else: the card's name and power limit
+(`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`, or the
+CUDA device's name, marked so, where nvidia-smi is absent), patches,
+cold and steady seconds, patches/s, each run's phase seconds, the steady
+run's launches of every K1-K4 instantiation that launched (K1 and K2
+on the default path), the surface
+distance / dscale median and q90, and whether PERF.md section 2's bars
+hold: >= 80,000 patches, median < 0.4, q90 < 1.5. Exit code 0 when they
+hold, else 1.
+
+    python -m cmvs_pmvs_tpu_torch.scripts.run_full [--out PATH]
+        [--device cuda]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops.kernels import launch_counts, launches_since
+from . import ablate_common
+from .profile_e2e import FULL, Setup, write_tree
+from .profiling import sync
+
+MIN_PATCHES, MAX_MEDIAN, MAX_Q90 = 80_000, 0.4, 1.5
+
+
+def card(dev) -> str:
+    """The card's name and power limit as nvidia-smi gives them; without
+    nvidia-smi the device's name, marked so; "cpu" on the CPU."""
+    if dev.type != "cuda":
+        return "cpu"
+    try:
+        return ablate_common.card()
+    except (OSError, subprocess.CalledProcessError):
+        return (f"{torch.cuda.get_device_name(dev)} (power limit not read: "
+                f"no nvidia-smi)")
+
+
+def run(setup: Setup = FULL, device="cuda", log=print) -> dict:
+    """Cold then warm runs of `setup` on a fresh tree under the temp
+    directory (removed after); the result line as a dict."""
+    from ..models.engine import PMVSEngine, load_scene
+    from ..utils.options import PMVSOptions
+    dev = resolve_device(device)
+    root = tempfile.mkdtemp(prefix="run_full_")
+    t00 = time.perf_counter()
+
+    def stamp(msg):
+        log(f"[{time.perf_counter() - t00:8.1f}s] {msg}")
+
+    try:
+        scene = write_tree(root, setup)
+        opt = PMVSOptions.parse(os.path.join(root, "option.txt"))
+        t0 = time.perf_counter()
+        data = load_scene(root, opt, device=dev)
+        sync(dev)
+        load_seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    for name in ("cold", "warm"):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        eng = PMVSEngine(data, opt, p_cap=setup.p_cap, log=lambda *a: None,
+                         device=dev)
+        eng.run(**setup.run_kwargs())
+        sync(dev)
+        dt = time.perf_counter() - t0
+        n = int(eng.cloud.count())
+        phases = {}
+        for span, sp in eng.tracer.spans.items():
+            top = span.split(".")[0]
+            phases[top] = phases.get(top, 0.0) + sp.seconds
+        runs[name] = {"patches": n, "seconds": dt, "phases": phases,
+                      "launches": launches_since(before)}
+        stamp(f"{name}: {n} patches in {dt:.2f} s ({n / dt:.1f}/s) "
+              f"{ {k: round(v, 3) for k, v in phases.items()} }")
+    alive = eng.cloud.alive.cpu().numpy()
+    coord = eng.cloud.coord.cpu().numpy()[alive][:, :3]
+    dscale = eng.cloud.dscale.cpu().numpy()[alive]
+    d = scene.surface_distance(coord) / dscale
+    med, q90 = (float(np.median(d)), float(np.quantile(d, 0.9))) \
+        if len(d) else (float("inf"), float("inf"))
+    warm = runs["warm"]
+    bars = {"patches": warm["patches"] >= MIN_PATCHES,
+            "median": med < MAX_MEDIAN, "q90": q90 < MAX_Q90}
+    return {
+        "card": card(dev), "device": str(dev),
+        "protocol": (f"occluded scene {setup.num_cameras} x {setup.width}x"
+                     f"{setup.height}, mask border {setup.mask_border}, "
+                     f"setEdge {setup.set_edge:g}, level 0, csize 2, "
+                     f"expand_iters {setup.expand_iters}, max_waves "
+                     f"{setup.max_waves}, refine_iters "
+                     f"{setup.refine_iters}, p_cap {setup.p_cap}"),
+        "load_seconds": load_seconds,
+        "patches": warm["patches"], "cold_patches": runs["cold"]["patches"],
+        "cold_seconds": runs["cold"]["seconds"],
+        "steady_seconds": warm["seconds"],
+        "patches_per_sec": warm["patches"] / warm["seconds"],
+        "cold_phase_seconds": runs["cold"]["phases"],
+        "phase_seconds": warm["phases"],
+        "launches": warm["launches"],
+        "median": med, "q90": q90,
+        "bars": {**bars, "ok": all(bars.values())},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join("build", "run_full.json"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    r = run(FULL, device=args.device)
+    line = json.dumps(r)
+    if os.path.dirname(args.out):
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(line + "\n")
+    print(line)
+    return 0 if r["bars"]["ok"] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
