@@ -116,6 +116,26 @@ raises on failure (the script then exits non-zero):
    in each; busy shares logged); run_full, cold then warm (phase 5's
    bars; its line also written to build/run_full.json); bench_fan2 (K3
    against K1, which must agree within 1e-4); ab_broyden's kernel A/B.
+15. The graphed path (models/graphs: one CUDA graph per refine bucket,
+   the default on the card; phases 5, 8, 9 and 13 run `graphs=False`,
+   because their launch capture lists and tap statistics would see only
+   a graph's capture). (b) Phase 5's protocol through `reconstruct` on
+   the default path: phase 5's bars, its K1 and K2 counts (replays
+   counted as the launches their graphs hold) equal to phase 5's, its
+   .patch/.ply/.pset byte-identical to phase 5's or the first differing
+   patch logged and the count within 0.1% of phase 5's; peak memory and
+   the graphs captured logged. (a) At every _bucket15 chunk size up to
+   8192, a replayed process_candidates against the eager call on the
+   same inputs, bit for bit (a difference is named and held at 1e-6),
+   with the eager call's launches: depth 0 on phase 3's plane batch,
+   depth 1 on (b)'s scene, cloud and grid. (c) Both paths' launch calls
+   (the profiler's cudaLaunchKernel + cudaGraphLaunch) in seed, expand
+   and filter, their steady wall over three runs each (graphed with a
+   fresh cache and with one kept across runs), peak memory, and the
+   graphs captured with their capture seconds. (d) At expand_iters=1,
+   USE_FAN_V2 = False (K3), USE_FAN = False (K4) and the gamma pyramid
+   (float32 K1/K2), each graphed and eager: exactly its instantiations,
+   the graphed counts equal to the eager ones, phase 5's accuracy bars.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -977,7 +997,9 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     """One full-protocol run with the refine module's `flags` and the
     texture module's `texture_flags` set (and restored after): through
     `reconstruct` (the scene loaded from `root`), or on `loaded`, an
-    (options, SceneData) pair of `loaded_scenes`, through PMVSEngine.
+    (options, SceneData) pair of `loaded_scenes`, through PMVSEngine,
+    always with `graphs=False`: the launch capture lists and the tap
+    statistics it reads would see only a CUDA graph's capture.
     Every kernel counter is zeroed just before, read just after; the
     instantiations in `need` must have launched, those in `absent` must
     not. Bars: at least `min_patches` patches, surface distance / dscale
@@ -1011,11 +1033,12 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
             wrappers[k].capture = []
         for w in wrappers.values():
             w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         if loaded is not None:
             opt, data = loaded
             eng = PMVSEngine(data, opt, p_cap=200_000, log=run.pop("log"),
-                             device=dev)
+                             device=dev, graphs=False)
             eng.run(**run)
             if outputs:
                 out = os.path.join(root, "models", "option.txt")
@@ -1023,9 +1046,10 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
                 eng.write(out)
         else:
             eng = reconstruct(root, "option.txt", p_cap=200_000, device=dev,
-                              **run)
+                              graphs=False, **run)
         torch.cuda.synchronize()
         total = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
         launches = {k: w.launches for k, w in wrappers.items()}
     finally:
         for k, v in saved.items():
@@ -1053,7 +1077,8 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
                                             else {})}
     log(f"protocol[{label}] {setting} expand_iters {expand_iters}: {n} "
         f"patches, surface distance / dscale median {med:.4f} q90 "
-        f"{q90:.4f}, total {total:.2f} s, phases {phases}")
+        f"{q90:.4f}, total {total:.2f} s, phases {phases}, peak device "
+        f"memory {peak:.2f} GB")
     log(f"protocol[{label}]: kernel launches "
         f"{ {k: v for k, v in launches.items() if v} }; windows pairs "
         f"with a tap outside the 20-px block: {clip.get('clipped', 0)} of "
@@ -1075,7 +1100,7 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
                              f"{med}, q90 {q90}")
     if not outputs:
         return {"launches": launches, "calls": calls, "n": n,
-                "seconds": total, "median": med, "q90": q90}
+                "seconds": total, "median": med, "q90": q90, "peak": peak}
     base = os.path.join(root, "models", "option.txt")
     counts = {"patch": len(read_patch_file(base + ".patch")),
               "ply": len(read_ply_xyz(base + ".ply")),
@@ -1084,7 +1109,7 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
         raise AssertionError(f"{label}: output counts {counts} != {n}")
     log(f"protocol[{label}]: outputs read back {counts}")
     return {"launches": launches, "calls": calls, "n": n, "seconds": total,
-            "median": med, "q90": q90}
+            "median": med, "q90": q90, "peak": peak}
 
 
 def replay(calls, launch) -> dict:
@@ -1363,7 +1388,8 @@ def summed_launches(outs) -> dict:
 def rank_line(outs) -> str:
     return "; ".join(
         f"rank {r}: {o['seconds']:.2f} s, backend {o['backend']}, staged "
-        f"{o['staged'] or 'none'}, launches "
+        f"{o['staged'] or 'none'}, peak device memory "
+        f"{o.get('peak_gb') or 0:.2f} GB, launches "
         f"{ {k: v for k, v in o['launches'].items() if v} }"
         for r, o in enumerate(outs))
 
@@ -1820,6 +1846,303 @@ def phase_drivers(dev) -> dict:
     return launches
 
 
+# The _bucket15 sizes up to PROCESS_CHUNK: every row count a refine
+# batch's chunk takes (the larger buckets are multiples of 8192, but
+# 12288, whose second chunk is 4096)
+CHUNK_ROWS = (1024, 1536, 2048, 3072, 4096, 6144, 8192)
+PROTOCOL_RUN = dict(expand_iters=3, max_waves=12, refine_iters=8)
+
+
+def plane_process_args(dev):
+    """process_candidates' scene arguments and candidates on phase 3's
+    plane batch (6 views, BATCH patches; every view, reference 0), the
+    engine config and thresholds phase 5's options would give it."""
+    import torch
+    from cmvs_pmvs_tpu_torch.models.config import EngineConfig, Thresholds
+    from cmvs_pmvs_tpu_torch.utils.options import PMVSOptions
+    cams, pyr, coord, normal, views, valid, _ = plane_batch(6, dev)
+    cfg = EngineConfig(level=0, csize=2, wsize=7, tn=6, n=6, tau=6,
+                       min_image_num=3, t_store=6, p_cap=BATCH, gh=240,
+                       gw=320)
+    opt = PMVSOptions()
+    thr = Thresholds.initial(0.7, opt.max_angle_threshold,
+                             opt.quad_threshold, dev)
+    vis = torch.ones((6, 6), dtype=torch.bool, device=dev)
+    return ((cams, pyr, cfg, thr, vis),
+            (coord, normal, valid, torch.zeros(BATCH, dtype=torch.int32,
+                                               device=dev)), {})
+
+
+def engine_process_args(eng):
+    """process_candidates' scene arguments and candidates at depth 1 on
+    an engine's scene, cloud and grid: its first BATCH patches moved half
+    a dscale along their normals, their views, their reference."""
+    import torch
+    c = eng.cloud
+    coord = c.coord[:BATCH] + 0.5 * c.dscale[:BATCH, None] * c.normal[:BATCH]
+    img = c.images[:BATCH]
+    views = torch.arange(eng.cfg.n, device=coord.device)
+    vmask = ((img[..., None] == views) & (img >= 0)[..., None]).any(1)
+    sc = eng.scene
+    return ((sc.cams, sc.pyr, eng.cfg, eng.thr, sc.visdata),
+            (coord, c.normal[:BATCH], vmask, img[:, 0].contiguous()),
+            dict(grid=eng.grid, cloud=c))
+
+
+def phase_graph_chunks(dev, eng) -> dict:
+    """Phase 15a: at every CHUNK_ROWS size, depth 0 on phase 3's plane
+    batch and depth 1 on `eng`'s state, a process_candidates call
+    replayed from its CUDA graph against the eager call on the same
+    inputs: equal bits (else the fields that differ are named and held
+    at 1e-6) and the eager call's kernel launches."""
+    import torch
+    from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
+    from cmvs_pmvs_tpu_torch.models.process import process_candidates
+    from cmvs_pmvs_tpu_torch.ops.kernels import launch_counts, launches_since
+    graphs = RefineGraphs(dev)
+    out = {}
+    t0 = time.time()
+    for depth, (scene, rows, kw) in ((0, plane_process_args(dev)),
+                                     (1, engine_process_args(eng))):
+        for b in CHUNK_ROWS:
+            args = scene + tuple(r[:b] for r in rows)
+            kw = dict(kw, depth=depth, refine_iters=8)
+            before = launch_counts()
+            want = process_candidates(*args, **kw)
+            torch.cuda.synchronize()
+            eager = launches_since(before)
+            graphs.process(*args, **kw)            # warm-up and capture
+            before = launch_counts()
+            got = graphs.process(*args, **kw)
+            torch.cuda.synchronize()
+            replayed = launches_since(before)
+            differ = {}
+            for name in want._fields:
+                a, g = getattr(want, name), getattr(got, name)
+                if not torch.equal(a, g):
+                    differ[name] = float((a.double() - g.double()).abs()
+                                         .max())
+            label = f"depth {depth} rows {b}"
+            out[label] = {"equal": not differ, "differ": differ,
+                          "launches": replayed,
+                          "ok": int(want.success.sum())}
+            log(f"graph_chunks[{label}]: replay == eager: {not differ}"
+                f"{'' if not differ else f' (differs in {differ})'}, "
+                f"{int(want.success.sum())} successes, launches "
+                f"{replayed} (eager {eager})")
+            if replayed != eager:
+                raise AssertionError(f"graph_chunks[{label}]: a replay "
+                                     f"counted {replayed}, eager {eager}")
+            if any(v > 1e-6 for v in differ.values()) or any(
+                    getattr(want, n).dtype in (torch.bool, torch.int32,
+                                               torch.int64)
+                    for n in differ):
+                raise AssertionError(f"graph_chunks[{label}]: replay "
+                                     f"differs from eager: {differ}")
+    log(f"graph_chunks: {graphs.stats()} ({time.time() - t0:.2f} s)")
+    return out
+
+
+def first_patch_difference(a: str, b: str) -> str:
+    """The first record where two .patch files differ, both shown."""
+    from cmvs_pmvs_tpu_torch.io.patches import read_patch_file
+    ra, rb = read_patch_file(a), read_patch_file(b)
+    for i, (x, y) in enumerate(zip(ra, rb)):
+        if repr(x) != repr(y):
+            return f"patch {i}: {x} against {y}"
+    return f"the first {min(len(ra), len(rb))} records agree; " \
+           f"{len(ra)} against {len(rb)} records"
+
+
+def phase_graphed_protocol(dev, scene, phase5_files: str, n_default: int,
+                           launches_default: dict) -> dict:
+    """Phase 15b: phase 5's protocol through `reconstruct` on the default
+    (graphed) path. Returns its launches, count and engine."""
+    import torch
+    from cmvs_pmvs_tpu_torch.io.patches import read_patch_file, read_pset
+    from cmvs_pmvs_tpu_torch.io.ply import read_ply_xyz
+    from cmvs_pmvs_tpu_torch.models.engine import reconstruct
+    _, root = write_scene("chip_smoke_graphs", scene)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = reconstruct(root, "option.txt", p_cap=200_000, device=dev,
+                      log=lambda m: None, **PROTOCOL_RUN)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    alive = eng.cloud.alive.cpu().numpy()
+    n = int(alive.sum())
+    coord = eng.cloud.coord.cpu().numpy()[alive][:, :3]
+    d = scene.surface_distance(coord) / eng.cloud.dscale.cpu().numpy()[alive]
+    med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
+    base = os.path.join(root, "models", "option.txt")
+    counts = {"patch": len(read_patch_file(base + ".patch")),
+              "ply": len(read_ply_xyz(base + ".ply")),
+              "pset": len(read_pset(base + ".pset")[0])}
+    same = {ext: open(base + "." + ext, "rb").read()
+            == open(os.path.join(phase5_files, "option.txt." + ext),
+                    "rb").read() for ext in ("patch", "ply", "pset")}
+    log(f"graphed_protocol: {n} patches (phase 5: {n_default}), surface "
+        f"distance / dscale median {med:.4f} q90 {q90:.4f}, {total:.2f} s, "
+        f"phases { {k: round(v.seconds, 3) for k, v in eng.tracer.spans.items()} }"
+        f", peak device memory {peak:.2f} GB, graphs {eng.graphs.stats()}")
+    log(f"graphed_protocol: kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} } (phase 5: "
+        f"{ {k: v for k, v in launches_default.items() if v} }); outputs "
+        f"{counts}, byte-identical to phase 5's: {same}")
+    if not all(same.values()):
+        log("graphed_protocol: first difference from phase 5's .patch: "
+            + first_patch_difference(base + ".patch", os.path.join(
+                phase5_files, "option.txt.patch")))
+        if abs(n - n_default) > n_default / 1000:
+            raise AssertionError(f"graphed_protocol: {n} patches, phase 5 "
+                                 f"{n_default}: more than 0.1% apart")
+    if not (n >= 80_000 and med < 0.4 and q90 < 1.5
+            and all(c == n for c in counts.values())
+            and eng.cloud.coord.is_cuda):
+        raise AssertionError(f"graphed_protocol: bars missed: {n}, median "
+                             f"{med}, q90 {q90}, outputs {counts}")
+    for k in ("incc_fan", "windows"):
+        if launches[k] != launches_default[k] or launches[k] <= 0:
+            raise AssertionError(f"graphed_protocol: {k} launched "
+                                 f"{launches[k]}, phase 5 "
+                                 f"{launches_default[k]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "n": n, "eng": eng, "seconds": total,
+            "peak": peak, "graphs": eng.graphs.stats()}
+
+
+def phase_graph_costs(dev, scene) -> dict:
+    """Phase 15c: both paths' launch calls by phase under the profiler,
+    their steady wall over three runs each and their peak memory."""
+    import torch
+    from cmvs_pmvs_tpu_torch.models.engine import PMVSEngine, load_scene
+    from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
+    from cmvs_pmvs_tpu_torch.scripts import profile_e2e
+    from cmvs_pmvs_tpu_torch.utils.options import PMVSOptions
+    _, root = write_scene("chip_smoke_graph_costs", scene)
+    out = {"calls": {}, "steady": {}}
+    for label, graphs in (("eager", False), ("graphs", True)):
+        t0 = time.time()
+        pe = profile_e2e.profile(root, profile_e2e.FULL, dev,
+                                 profile_phases=("run",), graphs=graphs)
+        spans = pe["profile"]["run"]["spans"]
+        calls = {ph: (spans[ph]["launch_calls"], spans[ph]["graph_launches"])
+                 for ph in ("seed", "expand", "filter")}
+        whole = pe["profile"]["run"]
+        out["calls"][label] = {"by_phase": calls,
+                               "run": (whole["launch_calls"],
+                                       whole["graph_launches"]),
+                               "busy_share": whole["busy_share"],
+                               "graphs": pe["graphs"]}
+        log(f"graph_costs[{label}] profiled run: launch calls (of them "
+            f"graph replays) by phase {calls}, whole run "
+            f"{whole['launch_calls']} ({whole['graph_launches']}), busy "
+            f"{whole['busy_share']:.4f}, {pe['patches']} patches, graphs "
+            f"{pe['graphs']} ({time.time() - t0:.2f} s)")
+        del pe
+    opt = PMVSOptions.parse(os.path.join(root, "option.txt"))
+    data = load_scene(root, opt, device=dev)
+    kept = RefineGraphs(dev)
+    for label, graphs in (("eager", lambda: False), ("graphs", lambda: True),
+                          ("graphs_kept", lambda: kept)):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
+                             device=dev, graphs=graphs())
+            eng.run(**PROTOCOL_RUN)
+            torch.cuda.synchronize()
+            runs.append({"seconds": time.perf_counter() - t0,
+                         "n": int(eng.cloud.count()),
+                         "peak": torch.cuda.max_memory_allocated() / 1e9,
+                         "phases": {k: round(v.seconds, 3) for k, v in
+                                    eng.tracer.spans.items()},
+                         "graphs": eng.graphs.stats() if eng.graphs
+                         else None})
+            del eng
+        sec = [r["seconds"] for r in runs]
+        out["steady"][label] = runs
+        log(f"graph_costs[{label}] steady runs: seconds "
+            f"{[round(x, 3) for x in sec]} (spread {min(sec):.3f}-"
+            f"{max(sec):.3f}), patches {[r['n'] for r in runs]}, peak "
+            f"device memory {[round(r['peak'], 2) for r in runs]} GB, "
+            f"phases {[r['phases'] for r in runs]}, graphs "
+            f"{[r['graphs'] for r in runs]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_graph_variants(dev, scene) -> dict:
+    """Phase 15d: at expand_iters=1, USE_FAN_V2 = False (K3), USE_FAN =
+    False (K4) and the gamma pyramid (float32 K1/K2), each eager and
+    graphed: exactly its instantiations, the same counts on both paths,
+    phase 5's accuracy bars. Returns each graphed run's launches."""
+    import torch
+    from cmvs_pmvs_tpu_torch.models.engine import PMVSEngine
+    from cmvs_pmvs_tpu_torch.ops import refine
+    _, root = write_scene("chip_smoke_graph_variants", scene)
+    scenes = loaded_scenes(root, dev)
+    wrappers = kernel_wrappers()
+    runs = {}
+    for label, flags, need, gamma in (
+            ("fan_v1", {"USE_FAN_V2": False}, ("incc_fan_v1", "windows"),
+             False),
+            ("central", {"USE_FAN": False}, ("incc_blocks", "windows"),
+             False),
+            ("gamma", {}, ("incc_fan_f32", "windows_f32"), True)):
+        opt, data = scenes["gamma" if gamma else "byte"]
+        got = {}
+        saved = {k: getattr(refine, k) for k in flags}
+        try:
+            for k, v in flags.items():
+                setattr(refine, k, v)
+            for graphs in (False, True):
+                for w in wrappers.values():
+                    w.launches = 0
+                t0 = time.time()
+                eng = PMVSEngine(data, opt, p_cap=200_000,
+                                 log=lambda m: None, device=dev,
+                                 graphs=graphs)
+                eng.run(expand_iters=1, max_waves=12, refine_iters=8)
+                torch.cuda.synchronize()
+                alive = eng.cloud.alive.cpu().numpy()
+                c = eng.cloud.coord.cpu().numpy()[alive][:, :3]
+                d = scene.surface_distance(c) \
+                    / eng.cloud.dscale.cpu().numpy()[alive]
+                got[graphs] = dict(
+                    launches={k: w.launches for k, w in wrappers.items()},
+                    n=int(alive.sum()), med=float(np.median(d)),
+                    q90=float(np.quantile(d, 0.9)),
+                    seconds=time.time() - t0)
+                del eng
+        finally:
+            for k, v in saved.items():
+                setattr(refine, k, v)
+        e, g = got[False], got[True]
+        used = {k: v for k, v in g["launches"].items() if v}
+        log(f"graph_variants[{label}]: graphed {g['n']} patches in "
+            f"{g['seconds']:.2f} s (eager {e['n']} in {e['seconds']:.2f} "
+            f"s), median {g['med']:.4f} q90 {g['q90']:.4f}, launches "
+            f"{used} (eager "
+            f"{ {k: v for k, v in e['launches'].items() if v} })")
+        if set(used) != set(need) or g["launches"] != e["launches"]:
+            raise AssertionError(f"graph_variants[{label}]: launches "
+                                 f"{used}, eager {e['launches']}, need "
+                                 f"{need}")
+        if not all(r["med"] < 0.4 and r["q90"] < 1.5 for r in (e, g)):
+            raise AssertionError(f"graph_variants[{label}]: bars missed")
+        runs["graph_" + label] = g["launches"]
+    shutil.rmtree(root, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -1858,6 +2181,10 @@ def main() -> int:
                        need=("incc_fan", "windows"))
     runs["default"], n_default, seconds_default = (r["launches"], r["n"],
                                                    r["seconds"])
+    # phase 15b holds the graphed path's outputs to these
+    phase5_files = os.path.join(ROOT, "build", "chip_smoke_phase5")
+    shutil.rmtree(phase5_files, ignore_errors=True)
+    shutil.copytree(os.path.join(root, "models"), phase5_files)
     k1[4].update(protocol_kernel_time("default", "incc_fan",
                                       r["calls"]["incc_fan"], other))
     k2.update(protocol_kernel_time("default", "windows",
@@ -1893,6 +2220,15 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
     log(f"variants: phase 13 {time.time() - t0:.2f} s")
     runs["drivers"] = phase_drivers(dev)
+    t0 = time.time()
+    gp = phase_graphed_protocol(dev, scene, phase5_files, n_default,
+                                runs["default"])
+    runs["graphs"] = gp["launches"]
+    shutil.rmtree(phase5_files, ignore_errors=True)
+    phase_graph_chunks(dev, gp.pop("eng"))
+    phase_graph_costs(dev, scene)
+    runs.update(phase_graph_variants(dev, scene))
+    log(f"graphs: phase 15 {time.time() - t0:.2f} s")
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",
@@ -1910,10 +2246,10 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         row("incc_fan", "fan2.cu", "cmvs_pmvs_tpu/ops/pallas_fan2.py:115",
-            "default", {**k1[4], "max_abs_err": max(
+            "graphs", {**k1[4], "max_abs_err": max(
                 v["max_abs_err"] for v in k1.values())}),
         row("windows", "windows.cu", "cmvs_pmvs_tpu/ops/pallas_incc.py:81",
-            "default", k2),
+            "graphs", k2),
         row("incc_fan_v1", "fan.cu", "cmvs_pmvs_tpu/ops/pallas_fan.py:107",
             "fan_v1", {**k3[4], "max_abs_err": max(
                 v["max_abs_err"] for v in k3.values())}),

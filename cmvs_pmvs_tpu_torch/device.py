@@ -23,6 +23,23 @@ def resolve_device(device: str | torch.device | None = "cuda"
     return dev
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(values: tuple, dtype, device) -> torch.Tensor:
+    """`torch.tensor(values)` on `device`, made on the first call for
+    (values, dtype, device) and kept. A tensor built from a Python list
+    is copied from pageable host memory, which a CUDA stream refuses
+    while a graph is captured (models/graphs); the kept constant is made
+    on the eager warm-up call before any capture."""
+    key = (values, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype,
+                                           device=device)
+    return t
+
+
 def tree_to(obj, device: torch.device):
     """Copy of a (possibly nested) dataclass with every tensor field moved
     to `device`; non-tensor fields are kept."""

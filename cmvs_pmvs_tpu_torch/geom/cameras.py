@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import device_constant
+
 PROJ_SENTINEL = -65535.0  # reference camera.hpp:95-99 (-0xffff)
 _CLIP = 1.0e9
 
@@ -81,7 +83,7 @@ def level_projection(P, level):
         div = torch.stack([scale, scale, torch.ones_like(scale)], dim=-1)
         return P / div[..., :, None]
     s = float(2.0 ** level)
-    div = torch.tensor([s, s, 1.0], dtype=P.dtype, device=P.device)
+    div = device_constant((s, s, 1.0), P.dtype, P.device)
     return P / div[:, None]
 
 
@@ -99,9 +101,20 @@ def project(P, coord, level=0):
     bad = z <= 0.0
     out = v / torch.where(bad, torch.ones_like(z), z)
     out = out.clamp(-_CLIP, _CLIP)
-    sentinel = torch.tensor([PROJ_SENTINEL, PROJ_SENTINEL, -1.0],
-                            dtype=out.dtype, device=out.device)
+    sentinel = device_constant((PROJ_SENTINEL, PROJ_SENTINEL, -1.0),
+                               out.dtype, out.device)
     return torch.where(bad, sentinel, out)
+
+
+def project_level(cams: CameraSet, index, coord, level=0):
+    """Projection through camera `index` (gathered), batched over coord."""
+    return project(cams.P[index], coord, level)
+
+
+def depth_along_axis(cams: CameraSet, index, coord):
+    """Depth along the optical axis, oaxis . coord (camera.cpp:445-452,
+    the perspective branch)."""
+    return (cams.oaxis[index] * coord).sum(-1)
 
 
 def unit3(v):

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import device_constant
 from ..geom.cameras import project
 from .pyramid import PyramidSet
 
@@ -90,6 +91,11 @@ def _nearest_plane(plane, pyr: PyramidSet, n, level, x, y):
     return torch.where(inb, val, torch.ones_like(val))
 
 
+def mask_at(pyr: PyramidSet, n, level, x, y):
+    """Mask lookup (1.0 = in) at level-l pixel coords of view n."""
+    return _nearest_plane(pyr.mask_atlas, pyr, n, level, x, y)
+
+
 def edge_at(pyr: PyramidSet, n, level, x, y):
     return _nearest_plane(pyr.edge_atlas, pyr, n, level, x, y)
 
@@ -110,7 +116,7 @@ def inside_bimages(pyr: PyramidSet, P, coord, level: int,
     if not bindexes:
         return torch.ones(coord.shape[:-1], dtype=torch.bool,
                           device=coord.device)
-    bi = torch.as_tensor(bindexes, dtype=torch.int64, device=coord.device)
+    bi = device_constant(tuple(bindexes), torch.int64, coord.device)
     ic = project(P[bi], coord[..., None, :], level)
     w = pyr.widths[level, bi].to(ic.dtype)
     h = pyr.heights[level, bi].to(ic.dtype)

@@ -6,6 +6,14 @@ findMatch.cpp:187-220): detect, seed once, then `expand_iters` rounds of
 relaxed by 0.05 per round, then write .patch/.ply/.pset. The wave loop
 runs in Python; all state lives in fixed-capacity tensors on one device
 (CUDA by default - the CPU only when passed explicitly).
+
+Static shapes, as in the JAX engine: alive patches stay in the cloud's
+prefix (seed and expand append in index order, the filters are followed
+by a compaction), so every phase runs on `cloud[:cap_b]`, `cap_b` a x4
+capacity bucket (`_bucket`) of what the phase can touch; refine batches
+are padded with inactive rows to `_bucket15` sizes; and on CUDA each
+chunk of a refine batch replays a CUDA graph captured once per bucket
+(models/graphs; `graphs=False` runs it op by op).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from ..utils.trace import Tracer
 from .config import EngineConfig, Thresholds
 from .expand import expand_commit, expand_discover
 from .filter import refresh_visibility, run_filters
+from .graphs import RefineGraphs
 from .grid import GridState, empty_grid
 from .patches import PatchCloud, compact_cloud, empty_cloud
 from .seed import run_seed
@@ -40,6 +49,29 @@ from .views import collect_images_all
 # Largest expansion refine batch per wave (reference engine.py:405):
 # candidates beyond it requeue their parents for the next wave.
 COMMIT_CAP = 98304
+
+
+def _bucket(n: int, cap: int, lo: int = 2048) -> int:
+    """Smallest x4-bucket >= n (>= lo), capped at `cap`: the capacity
+    slices the phases run on (reference engine.py:104-111)."""
+    b = lo
+    while b < n and b < cap:
+        b *= 4
+    return min(b, cap)
+
+
+def _bucket15(n: int, cap: int, lo: int = 1024) -> int:
+    """Smallest bucket >= n from {lo*2^k} U {1.5*lo*2^k}, capped at
+    `cap`: refine-batch sizes with <= 33% padding (reference
+    engine.py:114-126)."""
+    n = max(1, min(n, cap))
+    b = lo
+    while b < n:
+        h = b * 3 // 2
+        if h >= n:
+            return min(h, cap)
+        b *= 2
+    return min(b, cap)
 
 
 @dataclass
@@ -108,12 +140,22 @@ class PMVSEngine:
 
     def __init__(self, scene: SceneData, opt: PMVSOptions,
                  p_cap: int = 200_000, log=print, tracer=None,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None,
+                 graphs: bool | RefineGraphs | None = None):
         """`mesh`: an engine mesh (parallel/engine_shard.make_engine_mesh)
         shared by every rank of the process group; each rank then runs
         its slice of every candidate batch and holds the whole state,
-        re-synchronised from rank 0 after every phase."""
+        re-synchronised from rank 0 after every phase. `graphs`: run the
+        refine batches' chunks as CUDA graphs (models/graphs); None is
+        True on a CUDA device and False on the CPU, where there are none;
+        a RefineGraphs shares its captures with other engines on the same
+        loaded scene."""
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs is True:
+            graphs = RefineGraphs(self.device)
+        self.graphs = graphs or None
         self.mesh = mesh
         if mesh is not None:
             from ..parallel.engine_shard import round_capacity
@@ -169,6 +211,10 @@ class PMVSEngine:
         old = self.cloud.capacity
         if new_cap <= old:
             return
+        new_cap = _bucket(new_cap, 1 << 30)
+        if self.mesh is not None:
+            from ..parallel.engine_shard import round_capacity
+            new_cap = round_capacity(new_cap, self.mesh)
         self.log(f"growing patch capacity {old} -> {new_cap}")
         big = empty_cloud(new_cap, self.cloud.max_views, self.device)
         self.cloud = PatchCloud(**{
@@ -190,6 +236,30 @@ class PMVSEngine:
         if self.mesh is not None:
             from ..parallel.engine_shard import sync_state
             sync_state(self)
+
+    # ---- the active prefix (reference engine.py:233-257) ----
+    def _cap_bucket(self, need: int) -> int:
+        """The capacity slice a phase that can touch `need` rows runs
+        on."""
+        b = _bucket(need, self.p_cap)
+        if self.mesh is not None:
+            from ..parallel.engine_shard import round_capacity
+            b = min(round_capacity(b, self.mesh), self.p_cap)
+        return b
+
+    def _slice(self, cap_b: int) -> PatchCloud:
+        if cap_b >= self.p_cap:
+            return self.cloud
+        return self.cloud.map(lambda a: a[:cap_b])
+
+    def _paste(self, part: PatchCloud, cap_b: int):
+        if cap_b >= self.p_cap:
+            self.cloud = part
+        else:
+            self.cloud = PatchCloud(**{
+                f.name: torch.cat([getattr(part, f.name),
+                                   getattr(self.cloud, f.name)[cap_b:]])
+                for f in dataclasses.fields(part)})
 
     def _compact(self):
         """Re-pack alive rows to the prefix; remap grid.depth_idx."""
@@ -239,14 +309,12 @@ class PMVSEngine:
             self.cloud, sdrop = run_seed(
                 cams, pyr, cfg, self.thr, self.scene.visdata, feats,
                 ref_views, rv_valid, self.cloud, refine_iters=refine_iters,
-                ensure_capacity=ensure, mesh=self.mesh)
+                ensure_capacity=ensure, mesh=self.mesh, graphs=self.graphs)
             nseed = int(self.cloud.count())
         tr.add_counter("seed", "patches", nseed)
         self.log(f"seed: {nseed} patches ({time.time() - t1:.1f}s)")
         self._check_capacity(int(sdrop))
-        self.cloud, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
-                                                   self.cloud, self.grid)
-        self._sync()
+        self._refresh(nseed)
         return self._run_iters(0, expand_iters, max_waves, refine_iters,
                                t0=t0, filters=filters)
 
@@ -258,9 +326,7 @@ class PMVSEngine:
         tr = self.tracer
         t0 = time.time() if t0 is None else t0
         if start_iter > 0:
-            self.cloud, self.grid = refresh_visibility(
-                cams, pyr, cfg, self.thr, self.cloud, self.grid)
-            self._sync()
+            self._refresh(int(self.cloud.count()))
         for it in range(start_iter, expand_iters):
             t2 = time.time()
             frontier = self.cloud.alive.clone()
@@ -271,33 +337,53 @@ class PMVSEngine:
             for wave in range(max_waves):
                 if f_n == 0:
                     break
+                # discover on the prefix that holds every alive row; the
+                # frontier budget covers the whole frontier, so no row
+                # overflows to the next wave (reference engine.py:369-395)
+                cap_d = self._cap_bucket(n_alive)
+                fbudget = _bucket15(f_n, cap_d)
                 with tr.span("expand", block=True):
                     disc = expand_discover(cams, pyr, cfg, self.thr,
-                                           self.cloud, self.grid, frontier,
-                                           slack)
-                    ncand = int(disc.sval.sum())
+                                           self._slice(cap_d), self.grid,
+                                           frontier[:cap_d], slack, fbudget)
+                    ncand, oflow_n = (int(v) for v in torch.stack(
+                        [disc.sval.sum(), disc.overflow.sum()]).cpu())
                     if ncand == 0:
-                        break
-                    cbudget = min(ncand, COMMIT_CAP)
+                        frontier = self._widen(disc.overflow, self.p_cap)
+                        f_n = oflow_n
+                        if f_n == 0:
+                            break
+                        continue
+                    # the refine batch: a _bucket15 size, its padding
+                    # inactive (reference engine.py:397-423)
+                    cbudget = _bucket15(min(ncand, COMMIT_CAP), COMMIT_CAP)
                     need = self._agreed(n_alive + cbudget)
                     if need > self.p_cap:
                         self._grow(max(self.p_cap * 2, need))
-                    self.cloud, self.grid, frontier, st = expand_commit(
+                    cap_b = self._cap_bucket(n_alive + cbudget)
+                    if cap_b != cap_d:
+                        disc = disc._replace(
+                            overflow=self._widen(disc.overflow, cap_b))
+                    cb, self.grid, fr, st = expand_commit(
                         cams, pyr, cfg, self.thr, self.scene.visdata,
-                        self.cloud, self.grid, disc, cbudget,
-                        refine_iters=refine_iters, mesh=self.mesh)
+                        self._slice(cap_b), self.grid, disc, cbudget,
+                        refine_iters=refine_iters, mesh=self.mesh,
+                        graphs=self.graphs)
+                    self._paste(cb, cap_b)
+                    frontier = self._widen(fr, self.p_cap)
                     self._sync()
                     acc, vdrops, dropped, frn = (int(v) for v in torch.stack(
                         [st.accepted, st.view_drops.to(st.accepted.dtype),
                          st.dropped.to(st.accepted.dtype),
-                         frontier.sum()]).cpu())
+                         fr.sum()]).cpu())
                 total_new += acc
                 total_vdrops += vdrops
                 tr.add_counter("expand", "accepted", acc)
                 tr.add_counter("expand", "candidates", ncand)
                 self._check_capacity(dropped)
                 self.log(f"  it{it} wave{wave}: +{acc} (cand {ncand}, "
-                         f"batch {cbudget}, frontier {f_n})")
+                         f"batch {cbudget}, frontier {f_n}/{fbudget}, "
+                         f"cap {cap_b})")
                 f_n = frn
                 n_alive += acc
                 if acc == 0 and frn == 0:
@@ -308,9 +394,11 @@ class PMVSEngine:
                 self.thr = self.thr.relaxed()
                 continue
             t3 = time.time()
+            cap_b = self._cap_bucket(int(self.cloud.count()))
             with tr.span("filter", block=True):
-                self.cloud, self.grid, fstats = run_filters(
-                    cams, pyr, cfg, self.thr, self.cloud, self.grid)
+                cb, self.grid, fstats = run_filters(
+                    cams, pyr, cfg, self.thr, self._slice(cap_b), self.grid)
+                self._paste(cb, cap_b)
                 self._compact()
                 self._sync()
             flat = [v for pair in fstats.values() for v in pair]
@@ -336,6 +424,22 @@ class PMVSEngine:
         self.log(f"total: {int(self.cloud.count())} patches "
                  f"({time.time() - t0:.1f}s)")
         return self.cloud
+
+    def _widen(self, mask, size: int):
+        """A [size] bool mask holding `mask` in its prefix."""
+        out = torch.zeros(size, dtype=torch.bool, device=self.device)
+        out[:mask.shape[0]] = mask
+        return out
+
+    def _refresh(self, n_alive: int):
+        """refresh_visibility on the prefix that holds the `n_alive`
+        alive rows (after the seed, and on resume)."""
+        cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
+        cap_b = self._cap_bucket(n_alive)
+        cb, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
+                                           self._slice(cap_b), self.grid)
+        self._paste(cb, cap_b)
+        self._sync()
 
     # ---- checkpoint / resume: the reference package's npz layout ----
     def save_checkpoint(self, path: str, iteration: int = 0):
@@ -395,16 +499,18 @@ class PMVSEngine:
 
 def reconstruct(prefix: str, option_name: str, p_cap: int = 200_000,
                 log=print, profile_dir: str | None = None, device="cuda",
-                mesh=None, **run_kwargs) -> PMVSEngine:
+                mesh=None, graphs: bool | None = None,
+                **run_kwargs) -> PMVSEngine:
     """pmvs3 entry: load, run, write models/<option> (pmvs.cpp:7-63).
     With an engine `mesh` every rank of the group calls it; the ranks
-    end with rank 0's cloud, and rank 0 alone writes."""
+    end with rank 0's cloud, and rank 0 alone writes. `graphs` as in
+    PMVSEngine (False: the refine batches op by op on the card)."""
     dev = resolve_device(device)
     opt = PMVSOptions.parse(os.path.join(prefix, option_name))
     scene = load_scene(prefix, opt, device=dev)
     tracer = Tracer(profile_dir=profile_dir)
     engine = PMVSEngine(scene, opt, p_cap=p_cap, log=log, tracer=tracer,
-                        device=dev, mesh=mesh)
+                        device=dev, mesh=mesh, graphs=graphs)
     with tracer.trace():
         engine.run(**run_kwargs)
     if mesh is not None and mesh.patch != 0:

@@ -21,7 +21,7 @@ from .config import EngineConfig, Thresholds
 from .grid import (CellTable, GridState, build_cell_table, cell_of,
                    count_cells, flat_cell_key, is_neighbor_idx,
                    rebuild_depth_maps, rebuild_occupancy)
-from .patches import PatchCloud, append_patches
+from .patches import PatchCloud, append_patches, sized_nonzero
 from .process import process_candidates_chunked
 from . import views as V
 
@@ -150,21 +150,30 @@ class DiscoverResult(NamedTuple):
     parent: torch.Tensor    # [F6] parent row in the cloud slice
     sector: torch.Tensor    # [F6]
     sval: torch.Tensor      # [F6] candidate survives all gates
+    overflow: torch.Tensor  # [P] frontier rows past the budget (retry)
 
 
 def expand_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
                     thr: Thresholds, cloud: PatchCloud, grid: GridState,
-                    frontier, slack: int) -> DiscoverResult:
+                    frontier, slack: int,
+                    fbudget: int | None = None) -> DiscoverResult:
     """Wave stage 1: the alive frontier rows ordered best score2 first
     (ties to the lower row), sector discovery and every pre-refinement
     gate of expandSub (expand.cpp:108-256). `slack` is checkCounts'
-    leniency: 0 on the first expand iteration, 1 after (expand.cpp:276)."""
+    leniency: 0 on the first expand iteration, 1 after (expand.cpp:276).
+    `fbudget`: expand only the best `fbudget` frontier rows; the rest
+    come back in `overflow` (None: every row, and `overflow` empty)."""
     dev = cloud.coord.device
     tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
-    rows = torch.nonzero(frontier & cloud.alive).flatten()
+    live = frontier & cloud.alive
+    rows = torch.nonzero(live).flatten()
     order = torch.argsort(cloud.score2(thr.ncc)[rows], descending=True,
                           stable=True)
     fsel = rows[order]
+    overflow = torch.zeros_like(live)
+    if fbudget is not None:
+        overflow[fsel[fbudget:]] = True
+        fsel = fsel[:fbudget]
 
     cand, cok = find_empty_blocks(cams, cfg, thr, cloud, tab, fsel)
     f6 = fsel.shape[0] * 6
@@ -214,7 +223,8 @@ def expand_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     vmask = V.remove_images_edge(pyr, cams, cfg.level, coord, vmask.bool())
     sval = sval & vmask.any(1)
     return DiscoverResult(coord=coord, normal=normal, vmask=vmask, ref=ref,
-                          parent=parent, sector=sector, sval=sval)
+                          parent=parent, sector=sector, sval=sval,
+                          overflow=overflow)
 
 
 def _bump(grid: GridState, cfg: EngineConfig, thr: Thresholds, images,
@@ -234,40 +244,55 @@ def _bump(grid: GridState, cfg: EngineConfig, thr: Thresholds, images,
 def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
                   thr: Thresholds, visdata, cloud: PatchCloud,
                   grid: GridState, disc: DiscoverResult, cbudget: int,
-                  refine_iters: int = 10, mesh=None):
+                  refine_iters: int = 10, mesh=None, graphs=None):
     """Wave stage 2: refine + postProcess the first `cbudget` surviving
-    candidates (best-first) and commit the successes. Candidates beyond
-    the budget requeue their parents. Returns (cloud, grid,
-    new_frontier [P], stats). `mesh`: an engine mesh splitting the refine
-    batch over ranks."""
+    candidates (best-first) and commit the successes. The batch has
+    `cbudget` rows: past the surviving candidates it is filled with
+    inactive rows (jnp.nonzero(size=cbudget), reference expand.py:301),
+    which are never appended, bump no count and mark no parent.
+    Candidates beyond the budget requeue their parents, as do the
+    discover stage's `overflow` rows (sized to this cloud's capacity by
+    the caller). Returns (cloud, grid, new_frontier [P], stats). `mesh`:
+    an engine mesh splitting the refine batch over ranks; `graphs`: a
+    models/graphs.RefineGraphs that runs its chunks."""
     p = cloud.capacity
     dev = cloud.coord.device
-    pos = torch.nonzero(disc.sval).flatten()[:cbudget]
-    coord = disc.coord[pos]
-    normal = disc.normal[pos]
-    vmask = disc.vmask[pos]
-    ref = disc.ref[pos]
-    parent = disc.parent[pos]
-    sector = disc.sector[pos]
-    nb = pos.shape[0]
+    f6 = disc.sval.shape[0]
+    if f6 == 0:
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return cloud, grid, disc.overflow & cloud.alive, \
+            WaveStats(zero, zero, zero)
+    pos = sized_nonzero(disc.sval, cbudget, f6)
+    active = pos < f6
+    posc = pos.clamp(max=f6 - 1)
+    coord = disc.coord[posc]
+    normal = disc.normal[posc]
+    vmask = disc.vmask[posc] & active[:, None]
+    ref = disc.ref[posc]
+    parent = torch.where(active, disc.parent[posc], p)
+    sector = disc.sector[posc]
 
-    leftover = disc.sval.clone()
-    leftover[pos] = False
-    overflow_parent = torch.zeros(p, dtype=torch.bool, device=dev)
-    overflow_parent[disc.parent[leftover]] = True
+    taken = torch.zeros(f6 + 1, dtype=torch.bool, device=dev)
+    taken[pos] = True
+    leftover = disc.sval & ~taken[:f6]
+    overflow_parent = torch.zeros(p + 1, dtype=torch.bool, device=dev)
+    overflow_parent[torch.where(leftover, disc.parent, p)] = True
+    overflow_parent = overflow_parent[:p] | disc.overflow
 
     res = process_candidates_chunked(cams, pyr, cfg, thr, visdata, coord,
                                      normal, vmask, ref, depth=1, grid=grid,
-                                     cloud=cloud, refine_iters=refine_iters,
-                                     mesh=mesh)
-    success = res.success
+                                     cloud=cloud, active=active,
+                                     refine_iters=refine_iters, mesh=mesh,
+                                     graphs=graphs)
+    success = res.success & active
 
     # parent dflag |= sector bit on failure (expand.cpp:98-103); a
-    # (parent, sector) pair occurs at most once per wave
-    fail = ~success
-    bits = torch.zeros_like(cloud.dflag)
-    bits.index_add_(0, parent[fail], (1 << sector[fail]).to(torch.int32))
-    cloud = replace(cloud, dflag=cloud.dflag | bits)
+    # (parent, sector) pair occurs at most once per wave, so add == or
+    fail = active & ~success
+    bits = torch.zeros(p + 1, dtype=cloud.dflag.dtype, device=dev)
+    bits.index_add_(0, torch.where(fail, parent, p),
+                    torch.where(fail, 1 << sector, 0).to(bits.dtype))
+    cloud = replace(cloud, dflag=cloud.dflag | bits[:p])
 
     c1, under1 = _bump(grid, cfg, thr, res.images, res.grids, success)
     c2, under2 = _bump(grid, cfg, thr, res.vimages, res.vgrids, success)
@@ -278,7 +303,7 @@ def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
         coord=res.coord, normal=res.normal, ncc=res.ncc, images=res.images,
         grids=res.grids, vimages=res.vimages, vgrids=res.vgrids,
         timages=res.timages, dscale=res.dscale, ascale=res.ascale,
-        dflag=torch.zeros(nb, dtype=torch.int32, device=dev),
+        dflag=torch.zeros(cbudget, dtype=torch.int32, device=dev),
         alive=success)
     before = cloud.alive
     cloud2, dropped = append_patches(cloud, new, success)
@@ -296,3 +321,20 @@ def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     stats = WaveStats(accepted=success.sum(),
                       dropped=dropped, view_drops=res.view_drops)
     return cloud2, grid, new_frontier, stats
+
+
+def expand_wave(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
+                thr: Thresholds, visdata, cloud: PatchCloud,
+                grid: GridState, frontier, depth: int, budget: int,
+                fbudget: int, refine_iters: int = 10, mesh=None,
+                graphs=None):
+    """One expansion wave, discover + commit, at a fixed commit `budget`
+    and frontier budget `fbudget` (reference expand.py:393-407): the
+    frontier rows past `fbudget` and the parents of candidates past
+    `budget` stay on the returned frontier."""
+    slack = 0 if depth <= 1 else 1
+    disc = expand_discover(cams, pyr, cfg, thr, cloud, grid, frontier,
+                           slack, fbudget)
+    return expand_commit(cams, pyr, cfg, thr, visdata, cloud, grid, disc,
+                         budget, refine_iters=refine_iters, mesh=mesh,
+                         graphs=graphs)

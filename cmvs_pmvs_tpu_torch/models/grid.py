@@ -153,8 +153,9 @@ def is_visible(cams: CameraSet, cloud: PatchCloud, grid: GridState,
                level: int, csize: int, coord, normal, image, ix, iy,
                strict):
     """Depth test against the front-most patch of cell (image, ix, iy)
-    (patchOrganizerS.cpp:487-526). Returns bool [...]."""
-    tn, gh, gw = grid.shape
+    (patchOrganizerS.cpp:487-526). Reads grid.depth_idx and cloud.coord
+    only. Returns bool [...]."""
+    tn, gh, gw = grid.depth_idx.shape
     inb = (ix >= 0) & (ix < gw) & (iy >= 0) & (iy < gh)
     img = image.long().clamp(0, tn - 1)
     didx = grid.depth_idx[img, iy.long().clamp(0, gh - 1),
@@ -267,6 +268,18 @@ def is_neighbor_comp(c0, n0, d0, cq, nq, dq, hunit, threshold,
         ok = ok & (hsize <= radius / hunit)
     ftmp = torch.where(hsize > 1.0, ftmp / hsize.clamp(max=2.0), ftmp)
     return ok & (ftmp < threshold)
+
+
+def is_neighbor(coord0, normal0, dscale0, coord1, normal1, dscale1, hunit,
+                threshold, radius=None):
+    """is_neighbor_comp on broadcastable [..., 4] coords and normals and
+    [...] dscales."""
+    def comps(a):
+        return a[..., 0], a[..., 1], a[..., 2]
+
+    return is_neighbor_comp(comps(coord0), comps(normal0), dscale0,
+                            comps(coord1), comps(normal1), dscale1, hunit,
+                            threshold, radius)
 
 
 def is_neighbor_idx(coord, normal, dscale, rows, q, hunit, threshold,

@@ -66,6 +66,19 @@ def empty_cloud(capacity: int, max_views: int,
         alive=torch.zeros((p,), dtype=torch.bool, device=device))
 
 
+def sized_nonzero(mask, size: int, fill: int):
+    """The indices of `mask`'s first `size` True entries in order, padded
+    with `fill` to `size` (jnp.nonzero(mask, size=size, fill_value=fill));
+    no host sync."""
+    n = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    slot = torch.where(mask & (rank < size), rank, size)
+    out = torch.full((size + 1,), fill, dtype=torch.int64,
+                     device=mask.device)
+    out.scatter_(0, slot, torch.arange(n, device=mask.device))
+    return out[:size]
+
+
 def append_patches(cloud: PatchCloud, new: PatchCloud, new_mask):
     """Append `new`'s masked rows into free slots of `cloud`, in index
     order. Returns (cloud, dropped) - rows that did not fit are counted,

@@ -60,10 +60,14 @@ def process_candidates_chunked(cams: CameraSet, pyr: PyramidSet,
                                cloud: PatchCloud | None = None,
                                active=None, refine_iters: int = 12,
                                chunk: int = PROCESS_CHUNK,
-                               mesh=None) -> ProcessResult:
-    """process_candidates over consecutive `chunk`-row slices. With an
-    engine `mesh` (parallel/engine_shard) each rank runs its equal slice
-    of the batch and the slices' results are gathered on every rank."""
+                               mesh=None, graphs=None) -> ProcessResult:
+    """process_candidates over consecutive `chunk`-row slices; rows whose
+    `active` is False (the padding of a bucketed batch) take no part in
+    any decision and come back with success False. With an engine `mesh`
+    (parallel/engine_shard) each rank runs its equal slice of the batch
+    and the slices' results are gathered on every rank. With `graphs` (a
+    models/graphs.RefineGraphs) each chunk runs as a replayed CUDA graph
+    of its row count."""
     b = coord.shape[0]
     if active is None:
         active = torch.ones(b, dtype=torch.bool, device=coord.device)
@@ -73,14 +77,14 @@ def process_candidates_chunked(cams: CameraSet, pyr: PyramidSet,
         part = process_candidates_chunked(
             cams, pyr, cfg, thr, visdata, coord[rows], normal[rows],
             vmask[rows], ref[rows], depth=depth, grid=grid, cloud=cloud,
-            active=act, refine_iters=refine_iters, chunk=chunk)
+            active=act, refine_iters=refine_iters, chunk=chunk,
+            graphs=graphs)
         return gather_result(mesh, part, b)
-    parts = [process_candidates(cams, pyr, cfg, thr, visdata,
-                                coord[s:s + chunk], normal[s:s + chunk],
-                                vmask[s:s + chunk], ref[s:s + chunk],
-                                depth=depth, grid=grid, cloud=cloud,
-                                active=active[s:s + chunk],
-                                refine_iters=refine_iters)
+    run = process_candidates if graphs is None else graphs.process
+    parts = [run(cams, pyr, cfg, thr, visdata, coord[s:s + chunk],
+                 normal[s:s + chunk], vmask[s:s + chunk], ref[s:s + chunk],
+                 depth=depth, grid=grid, cloud=cloud,
+                 active=active[s:s + chunk], refine_iters=refine_iters)
              for s in range(0, max(b, 1), chunk)]
     if len(parts) == 1:
         return parts[0]

@@ -16,7 +16,7 @@ from ..geom.cameras import CameraSet, epipolar_distance, \
 from ..image.pyramid import PyramidSet
 from ..image.sample import inside_bimages, mask_all
 from .config import EngineConfig, Thresholds
-from .patches import PatchCloud, append_patches
+from .patches import PatchCloud, append_patches, sized_nonzero
 from .process import process_candidates_chunked
 
 
@@ -181,11 +181,18 @@ def _argmax_per_group(group, score, valid, num_groups: int):
 
 def seed_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
                 thr: Thresholds, visdata, cand: SeedCandidates, keep,
-                cloud: PatchCloud, refine_iters: int = 12, mesh=None):
+                cloud: PatchCloud, budget: int, refine_iters: int = 12,
+                mesh=None, graphs=None):
     """Seed stage 2: refine the kept candidates and keep one winner per
-    reference cell (seed.cpp:186-199). Returns (cloud, dropped). `mesh`:
-    an engine mesh splitting the refine batch over ranks."""
-    sel = torch.nonzero(keep).flatten()
+    reference cell (seed.cpp:186-199). The batch has `budget` rows, the
+    kept candidates first and inactive rows after (reference
+    seed.py:233). Returns (cloud, dropped). `mesh`: an engine mesh
+    splitting the refine batch over ranks; `graphs`: a
+    models/graphs.RefineGraphs that runs its chunks."""
+    b = keep.shape[0]
+    sel = sized_nonzero(keep, budget, b)
+    active = sel < b
+    sel = sel.clamp(max=b - 1)
     coord = cand.coord[sel]
     ref = cand.ref[sel]
     other = cand.other[sel]
@@ -197,13 +204,14 @@ def seed_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     nb = coord.shape[0]
     rows = torch.arange(nb, device=coord.device)
     vmask = torch.zeros((nb, cfg.n), dtype=torch.bool, device=coord.device)
-    vmask[rows, ref] = True
-    vmask[rows, other] = True
+    vmask[rows, ref] = active
+    vmask[rows, other] = active
     res = process_candidates_chunked(cams, pyr, cfg, thr, visdata, coord,
                                      normal, vmask, ref.to(torch.int32),
-                                     depth=0, refine_iters=refine_iters,
-                                     mesh=mesh)
-    success = res.success
+                                     depth=0, active=active,
+                                     refine_iters=refine_iters, mesh=mesh,
+                                     graphs=graphs)
+    success = res.success & active
     score = (res.ncc - thr.ncc).clamp(min=0.0) * (res.images >= 0).sum(1)
     keep_mask = success & _argmax_per_group(cell, score, success,
                                             cfg.tn * cfg.gh * cfg.gw)
@@ -219,13 +227,19 @@ def seed_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
 def run_seed(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
              thr: Thresholds, visdata, feats, ref_views, ref_views_valid,
              cloud: PatchCloud, refine_iters: int = 12,
-             ensure_capacity=None, mesh=None):
+             ensure_capacity=None, mesh=None, graphs=None):
     """Full seeding phase (CSeed::run, seed.cpp:40-107). The refine batch
-    is the kept-candidate count; `ensure_capacity(needed)` may grow the
-    cloud before the commit so no accepted seed is dropped."""
+    is the kept-candidate count padded to a `_bucket15` size, capped at
+    the candidate budget (reference seed.py:292-297);
+    `ensure_capacity(needed)` may grow the cloud before the commit so no
+    accepted seed is dropped."""
+    from .engine import _bucket15
     cand, keep = seed_discover(cams, pyr, cfg, thr, feats, ref_views,
                                ref_views_valid)
+    cap = min(keep.shape[0], cfg.tn * feats["x"].shape[1] * cfg.seed_cand)
+    budget = min(_bucket15(max(int(keep.sum()), 1), cap), cap)
     if ensure_capacity is not None:
-        cloud = ensure_capacity(int(keep.sum()))
+        cloud = ensure_capacity(budget)
     return seed_commit(cams, pyr, cfg, thr, visdata, cand, keep, cloud,
-                       refine_iters=refine_iters, mesh=mesh)
+                       budget, refine_iters=refine_iters, mesh=mesh,
+                       graphs=graphs)

@@ -133,7 +133,9 @@ def sort_images(cams: CameraSet, level: int, coord, normal, ref, vmask,
                         unit / torch.where(pos, dots, torch.ones_like(dots)),
                         torch.full_like(unit, HUGE))
     rows = torch.arange(b, device=dev)
-    units[rows, ref.long()] = 0.0
+    # scatter_ with a Python scalar: no host-to-device copy (a capturing
+    # CUDA stream refuses one; models/graphs)
+    units.scatter_(1, ref.long()[:, None], 0.0)
     usable = (units < HUGE).sum(1)
     threshold = 1.0 - math.cos(math.radians(10.0))
     picks, oks = [], []
@@ -143,7 +145,7 @@ def sort_images(cams: CameraSet, level: int, coord, normal, ref, vmask,
         cone = 1.0 - (ray3 * ray3[rows, pick][:, None, :]).sum(-1)
         ftmp = cone.clamp(min=threshold / 2.0).clamp(max=threshold)
         units = units * (threshold / ftmp)
-        units[rows, pick] = HUGE
+        units.scatter_(1, pick[:, None], HUGE)
         picks.append(torch.where(pick_ok, pick, torch.full_like(pick, -1)))
         oks.append(pick_ok)
     valid = torch.stack(oks, 1) & (usable >= 2)[:, None]

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -143,6 +144,33 @@ def stream_handle() -> int:
 # K1-K4 wrappers, ops/fan2, ops/fan, ops/windows and ops/incc, each make
 # theirs when imported).
 ENTRIES: dict = {}
+# While a CUDA graph is captured (`recording`): the launches it holds, by
+# Entry; None otherwise.
+_held: dict | None = None
+
+
+@contextmanager
+def recording():
+    """Count the launches made inside the block into the yielded dict
+    (Entry -> launches) instead of `Entry.launches`: a stream that
+    captures a CUDA graph runs nothing, so what the graph holds counts
+    when it replays (`replayed`)."""
+    global _held
+    if _held is not None:
+        raise RuntimeError("kernels.recording: a graph is already being "
+                           "captured")
+    _held = {}
+    try:
+        yield _held
+    finally:
+        _held = None
+
+
+def replayed(held: dict):
+    """Count one replay of a graph holding `held` (Entry -> launches, from
+    `recording`)."""
+    for entry, n in held.items():
+        entry.launches += n
 
 
 class Entry:
@@ -162,13 +190,27 @@ class Entry:
 
     def launch(self, c_args: tuple, args: tuple, kwargs: dict):
         """Launch on the current stream with the C arguments `c_args`
-        (the stream appended); count it and keep (args, kwargs) where
-        capturing; raise on a launch error."""
+        (the stream appended), then `tally` it; raise on a launch
+        error."""
         check(getattr(lib(), self.symbol)(*c_args, stream_handle()),
               self.name)
+        self.tally(args, kwargs)
+
+    def tally(self, args: tuple = (), kwargs: dict | None = None):
+        """Count one launch and keep (args, kwargs) where capturing; while
+        a CUDA graph is captured (`recording`), count it into the graph's
+        tally instead. The capture list keeps the launch's tensors, which
+        a graph overwrites on every replay: it raises there."""
+        if _held is not None:
+            if self.capture is not None:
+                raise RuntimeError(f"{self.name}: its launch capture list "
+                                   f"is set while a CUDA graph is "
+                                   f"captured; run with graphs=False")
+            _held[self] = _held.get(self, 0) + 1
+            return
         self.launches += 1
         if self.capture is not None:
-            self.capture.append((args, kwargs))
+            self.capture.append((args, kwargs or {}))
 
 
 def entries() -> dict:

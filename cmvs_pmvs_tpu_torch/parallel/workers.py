@@ -30,13 +30,17 @@ def _zero_launches():
     for w in _wrappers().values():
         w.launches = 0
     comm.STAGED.clear()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
 
 
 def _report(dev, t0) -> dict:
+    peak = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
     return {"seconds": time.time() - t0, "backend": dist.get_backend(),
-            "staged": dict(comm.STAGED),
+            "staged": dict(comm.STAGED), "peak_gb": peak,
             "launches": {k: w.launches for k, w in _wrappers().items()}}
 
 

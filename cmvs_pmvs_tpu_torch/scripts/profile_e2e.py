@@ -169,9 +169,11 @@ def filter_subpasses(eng, dev: torch.device) -> dict:
 
 
 def profile(root: str, setup: Setup, device="cuda", trials: int = 1,
-            profile_phases=(), trace_out: str | None = None) -> dict:
+            profile_phases=(), trace_out: str | None = None,
+            graphs: bool | None = None) -> dict:
     """Run the engine on the tree at `root` `trials` times (the last one
-    kept), wrapped; then the filter sub-passes. With `profile_phases`,
+    kept), wrapped, with `graphs` as PMVSEngine takes it (None: CUDA
+    graphs on the card); then the filter sub-passes. With `profile_phases`,
     the last run captures torch.profiler around each such span's first
     instance, or, for "run" (named alone), around the whole run with
     every span; summaries in ["profile"][phase] and, with `trace_out`,
@@ -196,7 +198,7 @@ def profile(root: str, setup: Setup, device="cuda", trials: int = 1,
             t0 = time.perf_counter()
             eng = PMVSEngine(data, opt, p_cap=setup.p_cap,
                              log=lambda *a: None, tracer=tracer,
-                             device=dev)
+                             device=dev, graphs=graphs)
             eng.run(**setup.run_kwargs())
             profiling.sync(dev)
             total = time.perf_counter() - t0
@@ -210,6 +212,7 @@ def profile(root: str, setup: Setup, device="cuda", trials: int = 1,
            "patches_per_sec": n / total, "functions": times,
            "phases": phases,
            "phase_counts": {k: v.count for k, v in eng.tracer.spans.items()},
+           "graphs": eng.graphs.stats() if eng.graphs else None,
            "subpasses": filter_subpasses(eng, dev)}
     if profile_phases:
         if whole:

@@ -15,9 +15,11 @@ it. `summarize` gives, from such a list:
   over the capture's extent;
 - for each host range name, over its instances: wall time, the merged
   device time inside the range's host window (busy share = that over the
-  wall), device ops started inside, runtime launch calls, and the calls
-  that wait on the device (`*Synchronize*`) with the time the host spent
-  in them. Device idle time that the host spends outside those waits is
+  wall), device ops started inside, runtime launch calls
+  (`cudaLaunchKernel`, `cuLaunchKernel`, `cudaGraphLaunch`, ...), among
+  them the CUDA graph replays (`*GraphLaunch*`) apart, and the calls that
+  wait on the device (`*Synchronize*`) with the time the host spent in
+  them. Device idle time that the host spends outside those waits is
   host time between launches (Python, dispatch, launch latency).
 
 `PhaseTracer` is a `Tracer` that captures torch.profiler around the
@@ -64,6 +66,12 @@ def _is_runtime(name: str) -> bool:
     ...) call."""
     return name.startswith("cuda") or (name.startswith("cu")
                                        and name[2:3].isupper())
+
+
+def _is_launch(name: str) -> bool:
+    """A runtime call that launches device work: a kernel, or a CUDA
+    graph's replay (cudaGraphLaunch)."""
+    return "Launch" in name
 
 
 def events(prof) -> list[Event]:
@@ -153,7 +161,8 @@ def summarize(evts: list[Event], repeats: int = 1) -> dict:
             - bisect_left(starts, s.start)
         inside = runtime[bisect_left(rstarts, s.start):
                          bisect_left(rstarts, s.end)]
-        r["launch_calls"] += sum("Launch" in c.name for c in inside)
+        r["launch_calls"] += sum(_is_launch(c.name) for c in inside)
+        r["graph_launches"] += sum("GraphLaunch" in c.name for c in inside)
         waits = [c for c in inside if "Synchronize" in c.name]
         r["sync_calls"] += len(waits)
         r["sync"] += sum(c.end - c.start for c in waits)
@@ -164,6 +173,7 @@ def summarize(evts: list[Event], repeats: int = 1) -> dict:
         "idle_ms": (r["wall"] - r["busy"]) / 1e3,
         "device_ops": int(r["device_ops"]),
         "launch_calls": int(r["launch_calls"]),
+        "graph_launches": int(r["graph_launches"]),
         "sync_calls": int(r["sync_calls"]), "sync_ms": r["sync"] / 1e3}
         for name, r in acc.items()}
     return {
@@ -176,6 +186,8 @@ def summarize(evts: list[Event], repeats: int = 1) -> dict:
         "ops": {n: {"ms": us[n] / 1e3 / repeats,
                     "count": count[n] / repeats}
                 for n in sorted(us, key=lambda n: -us[n])},
+        "launch_calls": sum(_is_launch(e.name) for e in runtime),
+        "graph_launches": sum("GraphLaunch" in e.name for e in runtime),
         "spans": spans,
     }
 
@@ -186,7 +198,8 @@ def format_summary(s: dict, top: int = 30) -> str:
     lines = [f"device ops{per}: {s['device_ms']:.3f} ms in "
              f"{s['device_ops']:g} ops; busy {s['busy_ms']:.3f} of "
              f"{s['window_ms']:.3f} ms captured "
-             f"({100 * s['busy_share']:.1f}%)"]
+             f"({100 * s['busy_share']:.1f}%); {s['launch_calls']} launch "
+             f"calls, {s['graph_launches']} of them graph replays"]
     for name, o in list(s["ops"].items())[:top]:
         lines.append(f"{o['ms']:10.4f} ms  x{o['count']:<8g} {name[:100]}")
     for name, r in s["spans"].items():
@@ -195,8 +208,8 @@ def format_summary(s: dict, top: int = 30) -> str:
             f"device busy {r['busy_ms']:.2f} ms "
             f"({100 * r['busy_share']:.1f}%), idle {r['idle_ms']:.2f} ms; "
             f"{r['device_ops']} device ops, {r['launch_calls']} launch "
-            f"calls, {r['sync_calls']} syncs ({r['sync_ms']:.2f} ms "
-            f"waiting)")
+            f"calls ({r['graph_launches']} graph replays), "
+            f"{r['sync_calls']} syncs ({r['sync_ms']:.2f} ms waiting)")
     return "\n".join(lines)
 
 

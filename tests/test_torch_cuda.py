@@ -1054,3 +1054,71 @@ def test_unblocked_windows_equal_bilinear_color(setup):
     assert bool(inside.any())
     assert torch.equal(got.reshape(-1, 49, 3)[inside],
                        blocked.reshape(-1, 49, 3)[inside])
+
+
+def _process_case(s, depth: int):
+    """process_candidates arguments on the setup's batch (its patches
+    moved 0.01 along the ray), with a cloud of the unmoved patches and
+    its depth maps for depth 1."""
+    import dataclasses
+    from cmvs_pmvs_tpu_torch.models.config import EngineConfig, Thresholds
+    from cmvs_pmvs_tpu_torch.models.grid import (cell_of, empty_grid,
+                                                 rebuild_depth_maps)
+    from cmvs_pmvs_tpu_torch.models.patches import empty_cloud
+    dev = s["dev"]
+    cfg = EngineConfig(level=0, csize=2, wsize=7, tn=T, n=T, tau=T,
+                       min_image_num=3, t_store=T, p_cap=B, gh=120, gw=160)
+    thr = Thresholds.initial(0.7, 10.0 * np.pi / 180.0, 2.5, dev)
+    ray = s["coord"] - s["cams"].center[0]
+    ray = ray / torch.linalg.vector_norm(ray[:, :3], dim=1, keepdim=True)
+    vmask = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    vmask[:, :3] = True
+    kw = dict(depth=depth)
+    if depth:
+        ix, iy = cell_of(s["cams"], 0, 2, s["coord"][:, None, :], s["views"])
+        cloud = dataclasses.replace(
+            empty_cloud(B, T, dev), coord=s["coord"], normal=s["normal"],
+            images=s["views"], grids=torch.stack([ix, iy], -1),
+            alive=torch.ones(B, dtype=torch.bool, device=dev))
+        d, didx = rebuild_depth_maps(s["cams"], cloud, 0, 2, T, 120, 160)
+        kw.update(cloud=cloud, grid=dataclasses.replace(
+            empty_grid(T, 120, 160, dev), depth=d, depth_idx=didx))
+    return ((s["cams"], s["pyr"], cfg, thr,
+             torch.ones((T, T), dtype=torch.bool, device=dev),
+             s["coord"] + 0.01 * ray, s["normal"], vmask,
+             torch.zeros(B, dtype=torch.int32, device=dev)), kw)
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_refine_graph_replays_the_eager_call(setup, depth, monkeypatch):
+    """A chunk call captured as a CUDA graph: its replays give the eager
+    call's bits, also after the inputs change; each replay counts the
+    launches the eager call makes; another switch captures anew."""
+    from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
+    from cmvs_pmvs_tpu_torch.models.process import process_candidates
+    args, kw = _process_case(setup, depth)
+    moved = args[:5] + (args[5] + 0.002,) + args[6:]
+    before = kernels.launch_counts()
+    want = process_candidates(*args, refine_iters=4, **kw)
+    want2 = process_candidates(*moved, refine_iters=4, **kw)
+    torch.cuda.synchronize()
+    eager = kernels.launches_since(before)
+    assert eager.get("incc_fan", 0) > 0 and eager.get("windows", 0) > 0
+    g = RefineGraphs(setup["dev"])
+    first = g.process(*args, refine_iters=4, **kw)      # warm-up, capture
+    before = kernels.launch_counts()
+    got = g.process(*args, refine_iters=4, **kw)        # replays
+    got2 = g.process(*moved, refine_iters=4, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches_since(before) == eager
+    assert g.stats()["graphs"] == 1 and g.stats()["replays"] == 2
+    for name in want._fields:
+        for a, b in ((want, first), (want, got), (want2, got2)):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert int(want.success.sum()) > B // 4
+    monkeypatch.setattr(TR, "USE_FAN_V2", False)
+    k3 = _n("incc_fan_v1")
+    g.process(*args, refine_iters=4, **kw)
+    g.process(*args, refine_iters=4, **kw)
+    torch.cuda.synchronize()
+    assert g.stats()["graphs"] == 2 and _n("incc_fan_v1") > k3

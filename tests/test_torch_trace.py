@@ -167,3 +167,20 @@ def test_k1_kernel_name(name, k1):
     """profile_wave names K1 among the device ops by its symbol, K3 (the
     same body with kV1 true) excluded."""
     assert bool(K1_KERNEL.search(name)) == k1
+
+
+def test_summary_counts_graph_replays_as_launch_calls():
+    ev = [P.Event("A", 0.0, 30.0, P.SPAN),
+          P.Event("cudaLaunchKernel", 1.0, 2.0, P.RUNTIME),
+          P.Event("cudaGraphLaunch", 3.0, 5.0, P.RUNTIME),
+          P.Event("cudaGraphLaunch", 6.0, 8.0, P.RUNTIME),
+          P.Event("cudaStreamSynchronize", 9.0, 12.0, P.RUNTIME),
+          P.Event("cudaGraphLaunch", 40.0, 41.0, P.RUNTIME),
+          P.Event("k1", 2.0, 20.0, P.DEVICE)]
+    s = P.summarize(ev)
+    a = s["spans"]["A"]
+    assert (a["launch_calls"], a["graph_launches"], a["sync_calls"]) == \
+        (3, 2, 1)
+    assert (s["launch_calls"], s["graph_launches"]) == (4, 3)
+    assert "4 launch calls, 3 of them graph replays" in P.format_summary(s)
+    assert "(2 graph replays)" in P.format_summary(s)
