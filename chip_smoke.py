@@ -136,15 +136,37 @@ raises on failure (the script then exits non-zero):
    USE_FAN_V2 = False (K3), USE_FAN = False (K4) and the gamma pyramid
    (float32 K1/K2), each graphed and eager: exactly its instantiations,
    the graphed counts equal to the eager ones, phase 5's accuracy bars.
+   The default path also replays the programs of the waves and of the
+   filter stage (phase 16), so (b) and (d) hold them too.
+16. The static-shape programs (models/graphs `program`: expand_discover,
+   the commit's select and apply halves, run_filters_pre / post / tail,
+   count_neighbor_pairs, the chunked neighbour pass's row programs,
+   seed_discover). (a) On phase 15(b)'s final state, each program's
+   replay against its eager call on the same inputs (expand_discover at
+   an fbudget below the frontier, so rows overflow; the chunked
+   neighbour pass with max_pairs a quarter of the pairs, at least 3
+   chunks, against the single pass), each replay under
+   torch.cuda.set_sync_debug_mode("error"): equal bits, or the fields
+   that differ named - a float field held at 1e-6, an integer or bool
+   field exact, unless two eager calls differ too (the card's order of
+   atomic float sums feeds the program's verdicts): then each field to
+   1e-3 of its elements, a count to twice the eager calls' spread or
+   1e-3 of its value - and the eager call's kernel launches. (b) is
+   phase 15(b), whose K1 and K2 counts must equal phase 5's. (c) Phase
+   15(c) also profiles a run with a cache kept across runs, runs the
+   kept cache's steady runs' expand and filter rounds under sync debug
+   mode "error" (the engine's own reads, `PMVSEngine._read`, are the
+   only ones allowed), and logs each run's host reads, filter seconds
+   and graphs by program. (d) is phase 15(d).
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
 overlaps the spin and the events time the device's work. Every kernel's
 launch counter is set to 0 just before each protocol run and before the
 ablation sweeps, and read just after; replays and comparisons do not
-count. The line before the last is a JSON object with each kernel
-instantiation's (K1-K4 for uint8 and float32 atlases, K2 and K4 also
-unblocked; ops/kernels.ENTRIES) launches (in the run whose path it
+count. Three lines from the end the script prints a JSON object with
+each kernel instantiation's (K1-K4 for uint8 and float32 atlases, K2 and
+K4 also unblocked; ops/kernels.ENTRIES) launches (in the run whose path it
 serves, and per run), error, times,
 and its bound: the larger of its compulsory bytes over the H100's 3.35
 TB/s and its float32 operations over the 67 TFLOP/s non-tensor peak,
@@ -153,8 +175,10 @@ is needed (K2: ok pairs; K4: ok pairs of patches whose reference is ok),
 so only those count; every pair's `starts`, `ok` and output count (a
 failed pair still writes its zeros or its 2.0). Phases 4, 7 and the K2
 and K4 replays also log the earlier count (every pair's positions).
-The last line is {"ok": true, "device": {...}}. The script imports no
-jax and nothing of the JAX package.
+The line after it, the one before the last, is `card: ` and the card's
+name and power limit as nvidia-smi gives them; the last line is {"ok":
+true, "device": {...}}. The script imports no jax and nothing of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -2022,7 +2046,7 @@ def phase_graph_costs(dev, scene) -> dict:
     import torch
     from cmvs_pmvs_tpu_torch.models.engine import PMVSEngine, load_scene
     from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
-    from cmvs_pmvs_tpu_torch.scripts import profile_e2e
+    from cmvs_pmvs_tpu_torch.scripts import profile_e2e, profiling
     from cmvs_pmvs_tpu_torch.utils.options import PMVSOptions
     _, root = write_scene("chip_smoke_graph_costs", scene)
     out = {"calls": {}, "steady": {}}
@@ -2048,6 +2072,36 @@ def phase_graph_costs(dev, scene) -> dict:
     opt = PMVSOptions.parse(os.path.join(root, "option.txt"))
     data = load_scene(root, opt, device=dev)
     kept = RefineGraphs(dev)
+    # phase 16(c): a run with the kept cache profiled, after one that
+    # fills it; its expand and filter rounds under sync debug "error"
+    t0 = time.time()
+    eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
+                     device=dev, graphs=kept)
+    eng.run(**PROTOCOL_RUN)
+    del eng
+    with torch.profiler.profile(activities=profiling.activities()) as prof:
+        eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
+                         device=dev, graphs=kept)
+        strict_rounds(eng)
+        eng.run(**PROTOCOL_RUN)
+        torch.cuda.synchronize()
+    whole = profiling.summarize(profiling.events(prof))
+    spans = whole["spans"]
+    calls = {ph: (spans[ph]["launch_calls"], spans[ph]["graph_launches"])
+             for ph in ("seed", "expand", "filter")}
+    out["calls"]["graphs_kept"] = {
+        "by_phase": calls, "run": (whole["launch_calls"],
+                                   whole["graph_launches"]),
+        "busy_share": whole["busy_share"], "graphs": kept.stats(),
+        "host_reads": eng.host_reads}
+    log(f"graph_costs[graphs_kept] profiled run (the cache filled by one "
+        f"run before it; expand and filter rounds under sync debug "
+        f"'error'): launch calls (of them graph replays) by phase {calls}, "
+        f"whole run {whole['launch_calls']} ({whole['graph_launches']}), "
+        f"busy {whole['busy_share']:.4f}, {int(eng.cloud.count())} "
+        f"patches, host reads {eng.host_reads}, graphs {kept.stats()} "
+        f"({time.time() - t0:.2f} s)")
+    del eng, prof, whole
     for label, graphs in (("eager", lambda: False), ("graphs", lambda: True),
                           ("graphs_kept", lambda: kept)):
         runs = []
@@ -2057,13 +2111,17 @@ def phase_graph_costs(dev, scene) -> dict:
             t0 = time.perf_counter()
             eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
                              device=dev, graphs=graphs())
+            if label == "graphs_kept":
+                strict_rounds(eng)
             eng.run(**PROTOCOL_RUN)
             torch.cuda.synchronize()
             runs.append({"seconds": time.perf_counter() - t0,
                          "n": int(eng.cloud.count()),
                          "peak": torch.cuda.max_memory_allocated() / 1e9,
+                         "reserved": torch.cuda.max_memory_reserved() / 1e9,
                          "phases": {k: round(v.seconds, 3) for k, v in
                                     eng.tracer.spans.items()},
+                         "host_reads": eng.host_reads,
                          "graphs": eng.graphs.stats() if eng.graphs
                          else None})
             del eng
@@ -2072,10 +2130,208 @@ def phase_graph_costs(dev, scene) -> dict:
         log(f"graph_costs[{label}] steady runs: seconds "
             f"{[round(x, 3) for x in sec]} (spread {min(sec):.3f}-"
             f"{max(sec):.3f}), patches {[r['n'] for r in runs]}, peak "
-            f"device memory {[round(r['peak'], 2) for r in runs]} GB, "
-            f"phases {[r['phases'] for r in runs]}, graphs "
+            f"device memory {[round(r['peak'], 2) for r in runs]} GB "
+            f"(reserved {[round(r['reserved'], 2) for r in runs]} GB, "
+            f"the allocator's cache from before the run included: a "
+            f"replay's temporaries live in its graph's pool, reserved but "
+            f"not allocated), "
+            f"phases {[r['phases'] for r in runs]}, host reads "
+            f"{[r['host_reads'] for r in runs]}, graphs "
             f"{[r['graphs'] for r in runs]}")
     shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def strict_rounds(eng):
+    """Run `eng`'s expand and filter rounds under CUDA sync debug mode
+    "error": a host read other than the engine's own (`_read`, made in
+    models/graphs.allowed_sync) or a capture raises."""
+    import torch
+    rounds = eng._run_iters
+
+    def checked(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return rounds(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    eng._run_iters = checked
+
+
+def named_leaves(obj, name: str = "") -> dict:
+    """The tensors of a program's result by a dotted name."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return {name: obj}
+    if dataclasses.is_dataclass(obj):
+        items = [(f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj)]
+    elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        items = list(zip(obj._fields, obj))
+    elif isinstance(obj, dict):
+        items = list(obj.items())
+    elif isinstance(obj, (tuple, list)):
+        items = list(enumerate(obj))
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(named_leaves(v, f"{name}.{k}" if name else str(k)))
+    return out
+
+
+def differences(want, got) -> dict:
+    """Fields of `got` that differ from `want`: name -> (max |diff|,
+    differing elements, elements)."""
+    import torch
+    a, b = named_leaves(want), named_leaves(got)
+    out = {}
+    for k, x in a.items():
+        y = b[k]
+        if x.shape != y.shape:
+            out[k] = (float("inf"), x.numel(), x.numel())
+        elif not torch.equal(x, y):
+            ne = x != y
+            d = torch.where(ne, (x.double() - y.double()).abs().nan_to_num(
+                nan=float("inf")), torch.zeros((), dtype=torch.float64,
+                                              device=x.device))
+            out[k] = (float(d.max()), int(ne.sum()), x.numel())
+    return out
+
+
+def phase_program_replays(dev, eng) -> dict:
+    """Phase 16(a): on `eng`'s final state, each program replayed from
+    its CUDA graph (under sync debug "error") against its eager call on
+    the same inputs: equal bits, or the differing fields named - floats
+    held at 1e-6; where two eager calls differ too, 1e-3 of a field's
+    elements, a count twice their spread or 1e-3 of its value - and the
+    eager call's launches."""
+    import torch
+    from cmvs_pmvs_tpu_torch.models import expand as X
+    from cmvs_pmvs_tpu_torch.models import filter as F
+    from cmvs_pmvs_tpu_torch.models import seed as S
+    from cmvs_pmvs_tpu_torch.models.engine import COMMIT_CAP, _bucket15
+    from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
+    from cmvs_pmvs_tpu_torch.models.process import (
+        process_candidates_chunked)
+    from cmvs_pmvs_tpu_torch.models.views import collect_images_all
+    from cmvs_pmvs_tpu_torch.ops.kernels import launch_counts, launches_since
+    g = RefineGraphs(dev)
+    sc = eng.scene
+    cams, pyr, cfg, thr = sc.cams, sc.pyr, eng.cfg, eng.thr
+    n = int(eng.cloud.count())
+    cap = eng._cap_bucket(n)
+    cloud, grid = eng._slice(cap), eng.grid
+    out = {}
+    t0 = time.time()
+
+    def check(label, fn, *args, **kw):
+        before = launch_counts()
+        want = fn(*args, **kw)
+        torch.cuda.synchronize()
+        eager = launches_since(before)
+        again = fn(*args, **kw)
+        fn(*args, graphs=g, **kw)           # warm-up and capture
+        torch.cuda.synchronize()
+        before = launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(*args, graphs=g, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        replayed = launches_since(before)
+        differ = differences(want, got)
+        noisy = differences(want, again)
+        out[label] = {"differ": differ, "eager_differ": noisy,
+                      "launches": replayed}
+        log(f"program_replays[{label}]: replay == eager: {not differ}"
+            f"{'' if not differ else f' (differs in {differ})'}, two "
+            f"eager calls equal: {not noisy}"
+            f"{'' if not noisy else f' (differ in {noisy})'}, launches "
+            f"{replayed} (eager {eager})")
+        if replayed != eager:
+            raise AssertionError(f"program_replays[{label}]: a replay "
+                                 f"counted {replayed}, eager {eager}")
+        leaves = named_leaves(want)
+        # where two eager calls differ, the program is not deterministic
+        # on the card (atomic float sums feed its verdicts): every field
+        # is held to 1e-3 of its elements, a count to twice the eager
+        # calls' spread of the counts or 1e-3 of its value
+        spread = max([nd for nd, _, n in noisy.values() if n == 1],
+                     default=0.0)
+        for k, (dmax, m, total) in differ.items():
+            if not noisy:
+                bad = dmax > 1e-6 or not leaves[k].is_floating_point()
+            elif total > 1:
+                bad = m > total / 1000
+            else:
+                big = float(leaves[k].double().abs())
+                bad = dmax > max(2 * spread, big / 1000)
+            if bad:
+                raise AssertionError(f"program_replays[{label}]: {k} "
+                                     f"differs: {differ[k]}")
+        return want
+
+    slack = 1
+    fbudget = _bucket15(n // 2, cap)
+    disc = check("expand_discover", X.expand_discover, cams, pyr, cfg, thr,
+                 cloud, grid, cloud.alive, slack, fbudget)
+    ncand, overflow = int(disc.ncand), int(disc.overflow.sum())
+    log(f"program_replays: {n} alive, fbudget {fbudget}: {ncand} "
+        f"candidates, {overflow} frontier rows overflow")
+    if overflow <= 0 or ncand <= 0:
+        raise AssertionError("program_replays: the frontier did not "
+                             "overflow its budget")
+    cbudget = _bucket15(min(ncand, COMMIT_CAP), COMMIT_CAP)
+    b = check("commit_select", X.commit_select, disc, cap, cbudget)
+    res = process_candidates_chunked(cams, pyr, cfg, thr, sc.visdata,
+                                     b.coord, b.normal, b.vmask, b.ref,
+                                     depth=1, grid=grid, cloud=cloud,
+                                     active=b.active, refine_iters=8)
+    check("commit_apply", X.commit_apply, cams, cfg, thr, cloud, grid,
+          b.active, b.parent, b.sector, b.overflow_parent, res, cbudget)
+    del res, b, disc
+    c1, g1, _ = check("run_filters_pre", F.run_filters_pre, cams, pyr, cfg,
+                      thr, cloud, grid)
+    need = int(check("count_neighbor_pairs", F.count_neighbor_pairs, cfg,
+                     c1))
+    # a budget for every pair, past MAX_PAIRS_PER_PASS where the engine
+    # would chunk: the single pass the chunked one is held to
+    pb = _bucket15(max(need, 1024), 1 << 62)
+    log(f"program_replays: {need} neighbour pairs, single-pass budget "
+        f"{pb} (MAX_PAIRS_PER_PASS {F.MAX_PAIRS_PER_PASS})")
+    check("run_filters_post", F.run_filters_post, cams, pyr, cfg, thr, c1,
+          g1, pb)
+    check("run_filters_tail", F.run_filters_tail, cams, pyr, cfg, thr, c1,
+          g1)
+    single, _ = F.filter_neighbor(cams, cfg, thr, c1, None, pb)
+    for trial in ("capture", "replay"):
+        reads = []
+
+        def read(v):
+            reads.append(int(v))
+            return reads[-1]
+
+        chunked, dropped = F.filter_neighbor_chunked(
+            cams, cfg, thr, c1, need, max_pairs=need // 4, graphs=g,
+            read=read)
+        differ = differences(single.alive, chunked.alive)
+        log(f"program_replays[filter_neighbor_chunked, {trial}]: "
+            f"{len(reads)} chunks {reads}, dropped {int(dropped)}, alive "
+            f"== the single pass's: {not differ} ({differ})")
+        if len(reads) < 3 or int(dropped) or (
+                differ and differ[""][1] > single.alive.numel() / 1000):
+            raise AssertionError("program_replays: the chunked pass "
+                                 f"({len(reads)} chunks) differs: {differ}")
+    feats = eng.features()
+    views, valid = collect_images_all(cams, sc.visdata, sc.distances,
+                                      cfg.tau, cfg.sequence)
+    check("seed_discover", S.seed_discover, cams, pyr, cfg, thr, feats,
+          views, valid)
+    log(f"program_replays: {g.stats()} ({time.time() - t0:.2f} s)")
     return out
 
 
@@ -2225,10 +2481,22 @@ def main() -> int:
                                 runs["default"])
     runs["graphs"] = gp["launches"]
     shutil.rmtree(phase5_files, ignore_errors=True)
-    phase_graph_chunks(dev, gp.pop("eng"))
+    eng = gp.pop("eng")
+    phase_graph_chunks(dev, eng)
+    # phase 16(a) on the same state, before 15(c) measures peak memory
+    t16 = time.time()
+    phase_program_replays(dev, eng)
+    t16 = time.time() - t16
+    del eng
     phase_graph_costs(dev, scene)
     runs.update(phase_graph_variants(dev, scene))
-    log(f"graphs: phase 15 {time.time() - t0:.2f} s")
+    log(f"graphs: phase 15 {time.time() - t0 - t16:.2f} s")
+    # 15(b) holds these to phase 5's counts
+    for k in ("incc_fan", "windows"):
+        log(f"programs: phase 16(b) is 15(b): {k} launched "
+            f"{runs['graphs'][k]} (replays counted; phase 5 "
+            f"{runs['default'][k]})")
+    log(f"programs: phase 16(a) {t16:.2f} s")
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",

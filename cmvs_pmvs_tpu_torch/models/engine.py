@@ -11,9 +11,15 @@ Static shapes, as in the JAX engine: alive patches stay in the cloud's
 prefix (seed and expand append in index order, the filters are followed
 by a compaction), so every phase runs on `cloud[:cap_b]`, `cap_b` a x4
 capacity bucket (`_bucket`) of what the phase can touch; refine batches
-are padded with inactive rows to `_bucket15` sizes; and on CUDA each
-chunk of a refine batch replays a CUDA graph captured once per bucket
-(models/graphs; `graphs=False` runs it op by op).
+are padded with inactive rows to `_bucket15` sizes, frontiers to
+`_bucket15` budgets and the neighbour filter's pairs to a `_bucket15`
+pair budget. On CUDA each refine chunk and each program of a wave and of
+the filter stage replays a CUDA graph captured once per static key
+(models/graphs; `graphs=False` runs the same code op by op). The host
+reads the card where the JAX engine does: once per iteration, twice per
+wave (the candidate count, the commit stats), twice per filter round
+(the neighbour pair count, the stats), and once per chunk of a chunked
+neighbour pass (`_read`).
 """
 from __future__ import annotations
 
@@ -39,8 +45,10 @@ from ..utils.options import PMVSOptions, build_visdata, read_bimages
 from ..utils.trace import Tracer
 from .config import EngineConfig, Thresholds
 from .expand import expand_commit, expand_discover
-from .filter import refresh_visibility, run_filters
-from .graphs import RefineGraphs
+from .filter import (MAX_PAIRS_PER_PASS, count_neighbor_pairs,
+                     filter_neighbor_chunked, refresh_visibility,
+                     run_filters_post, run_filters_pre, run_filters_tail)
+from .graphs import RefineGraphs, allowed_sync
 from .grid import GridState, empty_grid
 from .patches import PatchCloud, compact_cloud, empty_cloud
 from .seed import run_seed
@@ -146,9 +154,10 @@ class PMVSEngine:
         shared by every rank of the process group; each rank then runs
         its slice of every candidate batch and holds the whole state,
         re-synchronised from rank 0 after every phase. `graphs`: run the
-        refine batches' chunks as CUDA graphs (models/graphs); None is
-        True on a CUDA device and False on the CPU, where there are none;
-        a RefineGraphs shares its captures with other engines on the same
+        refine batches' chunks and the programs of the waves and the
+        filter stage as CUDA graphs (models/graphs); None is True on a
+        CUDA device and False on the CPU, where there are none; a
+        RefineGraphs shares its captures with other engines on the same
         loaded scene."""
         self.device = resolve_device(device)
         if graphs is None:
@@ -192,10 +201,20 @@ class PMVSEngine:
         self.stats: list[dict] = []
         self.overflowed = False
         self.tracer = tracer if tracer is not None else Tracer()
+        self.host_reads = 0
 
-    def _check_capacity(self, dropped: int = 0):
-        """Report patch-capacity pressure instead of truncating silently."""
-        n = int(self.cloud.count())
+    def _read(self, *values) -> list[int]:
+        """The device scalars `values` as Python ints, in one transfer:
+        the engine's host reads (counted in `host_reads`)."""
+        self.host_reads += 1
+        with allowed_sync():
+            return [int(v) for v in torch.stack(
+                [torch.as_tensor(v, device=self.device).to(torch.int64)
+                 for v in values]).cpu()]
+
+    def _check_capacity(self, dropped: int, n: int):
+        """Report patch-capacity pressure instead of truncating silently;
+        `n` the alive count."""
         if dropped > 0:
             self.overflowed = True
             self.log(f"WARNING: patch capacity overflow: {dropped} accepted "
@@ -282,15 +301,7 @@ class PMVSEngine:
         tr = self.tracer
         t0 = time.time()
         with tr.span("detect", block=True):
-            lv = cfg.level
-            h = int(pyr.heights[lv].max())
-            w = int(pyr.widths[lv].max())
-            x0 = int(pyr.xoff[lv])
-            img = pyr.atlas[:, :h, x0:x0 + w, :]
-            mask = pyr.mask_atlas[:, :h, x0:x0 + w] \
-                * pyr.edge_atlas[:, :h, x0:x0 + w]
-            feats = detect_features(img, mask, pyr.widths[lv],
-                                    pyr.heights[lv], fcsize=16)
+            feats = self.features()
             nfeat = int(feats["valid"].sum())
         tr.add_counter("detect", "features", nfeat)
         self.log(f"features: {nfeat} ({time.time() - t0:.1f}s)")
@@ -310,120 +321,169 @@ class PMVSEngine:
                 cams, pyr, cfg, self.thr, self.scene.visdata, feats,
                 ref_views, rv_valid, self.cloud, refine_iters=refine_iters,
                 ensure_capacity=ensure, mesh=self.mesh, graphs=self.graphs)
-            nseed = int(self.cloud.count())
+            nseed, sdrop = self._read(self.cloud.count(), sdrop)
         tr.add_counter("seed", "patches", nseed)
         self.log(f"seed: {nseed} patches ({time.time() - t1:.1f}s)")
-        self._check_capacity(int(sdrop))
+        self._check_capacity(sdrop, nseed)
         self._refresh(nseed)
         return self._run_iters(0, expand_iters, max_waves, refine_iters,
                                t0=t0, filters=filters)
+
+    def features(self) -> dict:
+        """Harris/DoG features of every image at the engine's level
+        (the detect phase)."""
+        pyr, lv = self.scene.pyr, self.cfg.level
+        h = int(pyr.heights[lv].max())
+        w = int(pyr.widths[lv].max())
+        x0 = int(pyr.xoff[lv])
+        img = pyr.atlas[:, :h, x0:x0 + w, :]
+        mask = pyr.mask_atlas[:, :h, x0:x0 + w] \
+            * pyr.edge_atlas[:, :h, x0:x0 + w]
+        return detect_features(img, mask, pyr.widths[lv], pyr.heights[lv],
+                               fcsize=16)
 
     def _run_iters(self, start_iter: int, expand_iters: int,
                    max_waves: int, refine_iters: int,
                    t0: float | None = None,
                    filters: bool = True) -> PatchCloud:
-        cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
-        tr = self.tracer
+        """The expand/filter rounds (reference engine.py:334-501)."""
         t0 = time.time() if t0 is None else t0
         if start_iter > 0:
-            self._refresh(int(self.cloud.count()))
+            self._refresh(self._read(self.cloud.count())[0])
         for it in range(start_iter, expand_iters):
-            t2 = time.time()
-            frontier = self.cloud.alive.clone()
-            total_new = total_vdrops = 0
-            f_n, n_alive = (int(v) for v in torch.stack(
-                [frontier.sum(), self.cloud.count()]).cpu())
-            slack = 0 if it == 0 else 1
-            for wave in range(max_waves):
-                if f_n == 0:
-                    break
-                # discover on the prefix that holds every alive row; the
-                # frontier budget covers the whole frontier, so no row
-                # overflows to the next wave (reference engine.py:369-395)
-                cap_d = self._cap_bucket(n_alive)
-                fbudget = _bucket15(f_n, cap_d)
-                with tr.span("expand", block=True):
-                    disc = expand_discover(cams, pyr, cfg, self.thr,
-                                           self._slice(cap_d), self.grid,
-                                           frontier[:cap_d], slack, fbudget)
-                    ncand, oflow_n = (int(v) for v in torch.stack(
-                        [disc.sval.sum(), disc.overflow.sum()]).cpu())
-                    if ncand == 0:
-                        frontier = self._widen(disc.overflow, self.p_cap)
-                        f_n = oflow_n
-                        if f_n == 0:
-                            break
-                        continue
-                    # the refine batch: a _bucket15 size, its padding
-                    # inactive (reference engine.py:397-423)
-                    cbudget = _bucket15(min(ncand, COMMIT_CAP), COMMIT_CAP)
-                    need = self._agreed(n_alive + cbudget)
-                    if need > self.p_cap:
-                        self._grow(max(self.p_cap * 2, need))
-                    cap_b = self._cap_bucket(n_alive + cbudget)
-                    if cap_b != cap_d:
-                        disc = disc._replace(
-                            overflow=self._widen(disc.overflow, cap_b))
-                    cb, self.grid, fr, st = expand_commit(
-                        cams, pyr, cfg, self.thr, self.scene.visdata,
-                        self._slice(cap_b), self.grid, disc, cbudget,
-                        refine_iters=refine_iters, mesh=self.mesh,
-                        graphs=self.graphs)
-                    self._paste(cb, cap_b)
-                    frontier = self._widen(fr, self.p_cap)
-                    self._sync()
-                    acc, vdrops, dropped, frn = (int(v) for v in torch.stack(
-                        [st.accepted, st.view_drops.to(st.accepted.dtype),
-                         st.dropped.to(st.accepted.dtype),
-                         fr.sum()]).cpu())
-                total_new += acc
-                total_vdrops += vdrops
-                tr.add_counter("expand", "accepted", acc)
-                tr.add_counter("expand", "candidates", ncand)
-                self._check_capacity(dropped)
-                self.log(f"  it{it} wave{wave}: +{acc} (cand {ncand}, "
-                         f"batch {cbudget}, frontier {f_n}/{fbudget}, "
-                         f"cap {cap_b})")
-                f_n = frn
-                n_alive += acc
-                if acc == 0 and frn == 0:
-                    break
-            self.log(f"expand it{it}: +{total_new} -> "
-                     f"{int(self.cloud.count())} ({time.time() - t2:.1f}s)")
-            if not filters:
-                self.thr = self.thr.relaxed()
-                continue
-            t3 = time.time()
-            cap_b = self._cap_bucket(int(self.cloud.count()))
-            with tr.span("filter", block=True):
-                cb, self.grid, fstats = run_filters(
-                    cams, pyr, cfg, self.thr, self._slice(cap_b), self.grid)
-                self._paste(cb, cap_b)
-                self._compact()
-                self._sync()
-            flat = [v for pair in fstats.values() for v in pair]
-            vals = [int(v) for v in torch.stack(
-                [torch.as_tensor(v, device=self.device) for v in flat]
-                + [(self.grid.occ - cfg.cell_k).clamp(min=0).sum(),
-                   (self.grid.vocc - cfg.cell_k).clamp(min=0).sum()]).cpu()]
-            msg = ", ".join(f"{k} {vals[2 * i]}->{vals[2 * i + 1]}"
-                            for i, k in enumerate(fstats))
-            self.log(f"filter it{it}: {msg} ({time.time() - t3:.1f}s)")
-            cell_trunc, vcell_trunc = vals[-2], vals[-1]
-            if cell_trunc or vcell_trunc:
-                self.log(f"  cell_k truncation: {cell_trunc} patches "
-                         f"(pgrids) / {vcell_trunc} (vpgrids) beyond "
-                         f"k={cfg.cell_k}")
-            self.stats.append({"iter": it, "new": total_new,
-                               "view_drops": total_vdrops,
-                               "cell_trunc": cell_trunc,
-                               "vcell_trunc": vcell_trunc,
-                               **{k: (vals[2 * i], vals[2 * i + 1])
-                                  for i, k in enumerate(fstats)}})
+            n_alive, new, vdrops = self._expand_round(it, max_waves,
+                                                      refine_iters)
+            if filters:
+                self._filter_round(it, n_alive, {
+                    "iter": it, "new": new, "view_drops": vdrops})
             self.thr = self.thr.relaxed()
-        self.log(f"total: {int(self.cloud.count())} patches "
+        self.log(f"total: {self._read(self.cloud.count())[0]} patches "
                  f"({time.time() - t0:.1f}s)")
         return self.cloud
+
+    def _expand_round(self, it: int, max_waves: int, refine_iters: int):
+        """Expand waves to a fixpoint (reference engine.py:351-435):
+        per wave one read of the candidate and overflow counts and one of
+        the commit stats. Returns (alive count, patches added, views
+        lost to the t_store cap)."""
+        cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
+        tr = self.tracer
+        t2 = time.time()
+        frontier = self.cloud.alive.clone()
+        total_new = total_vdrops = 0
+        f_n, n_alive = self._read(frontier.sum(), self.cloud.count())
+        slack = 0 if it == 0 else 1
+        for wave in range(max_waves):
+            if f_n == 0:
+                break
+            # discover on the prefix that holds every alive row, the
+            # frontier padded to a _bucket15 budget (reference
+            # engine.py:369-395)
+            cap_d = self._cap_bucket(n_alive)
+            fbudget = _bucket15(f_n, cap_d)
+            with tr.span("expand", block=True):
+                disc = expand_discover(cams, pyr, cfg, self.thr,
+                                       self._slice(cap_d), self.grid,
+                                       frontier[:cap_d], slack, fbudget,
+                                       graphs=self.graphs)
+                ncand, oflow_n = self._read(disc.ncand, disc.overflow.sum())
+                if ncand == 0:
+                    frontier = self._widen(disc.overflow, self.p_cap)
+                    f_n = oflow_n
+                    if f_n == 0:
+                        break
+                    continue
+                # the refine batch: a _bucket15 size, its padding
+                # inactive (reference engine.py:397-423)
+                cbudget = _bucket15(min(ncand, COMMIT_CAP), COMMIT_CAP)
+                need = self._agreed(n_alive + cbudget)
+                if need > self.p_cap:
+                    self._grow(max(self.p_cap * 2, need))
+                cap_b = self._cap_bucket(n_alive + cbudget)
+                if cap_b != cap_d:
+                    disc = disc._replace(
+                        overflow=self._widen(disc.overflow, cap_b))
+                cb, self.grid, fr, st = expand_commit(
+                    cams, pyr, cfg, self.thr, self.scene.visdata,
+                    self._slice(cap_b), self.grid, disc, cbudget,
+                    refine_iters=refine_iters, mesh=self.mesh,
+                    graphs=self.graphs)
+                self._paste(cb, cap_b)
+                frontier = self._widen(fr, self.p_cap)
+                self._sync()
+                acc, vdrops, dropped, frn = self._read(
+                    st.accepted, st.view_drops, st.dropped, fr.sum())
+            total_new += acc
+            total_vdrops += vdrops
+            tr.add_counter("expand", "accepted", acc)
+            tr.add_counter("expand", "candidates", ncand)
+            n_alive += acc - dropped
+            self._check_capacity(dropped, n_alive)
+            self.log(f"  it{it} wave{wave}: +{acc} (cand {ncand}, "
+                     f"batch {cbudget}, frontier {f_n}/{fbudget}, "
+                     f"cap {cap_b})")
+            f_n = frn
+            if acc == 0 and frn == 0:
+                break
+        self.log(f"expand it{it}: +{total_new} -> {n_alive} "
+                 f"({time.time() - t2:.1f}s)")
+        return n_alive, total_new, total_vdrops
+
+    def _filter_round(self, it: int, n_alive: int, stats: dict):
+        """The filter stage (reference engine.py:437-501): pre, one read
+        of the neighbour pair count, then post at a `_bucket15` pair
+        budget or, past MAX_PAIRS_PER_PASS pairs, the chunked neighbour
+        pass (a read per chunk) and tail; the compaction; one read of the
+        stats; `stats` (the round's expand figures) is completed and kept
+        in `self.stats`."""
+        cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
+        g = self.graphs
+        t3 = time.time()
+        cap_b = self._cap_bucket(n_alive)
+        with self.tracer.span("filter", block=True):
+            cb, grid, fstats = run_filters_pre(cams, pyr, cfg, self.thr,
+                                               self._slice(cap_b),
+                                               self.grid, graphs=g)
+            need = self._read(count_neighbor_pairs(cfg, cb, graphs=g))[0]
+            if need > MAX_PAIRS_PER_PASS:
+                n0 = cb.count()
+                cb, pdrop = filter_neighbor_chunked(
+                    cams, cfg, self.thr, cb, need, graphs=g,
+                    read=lambda v: self._read(v)[0])
+                fstats["neighbor"] = (n0, cb.count())
+                cb, grid, tail = run_filters_tail(cams, pyr, cfg, self.thr,
+                                                  cb, grid, graphs=g)
+                budget = "chunked exact budgets"
+            else:
+                pb = _bucket15(max(need, 1024), MAX_PAIRS_PER_PASS)
+                cb, grid, tail = run_filters_post(cams, pyr, cfg, self.thr,
+                                                  cb, grid, pb, graphs=g)
+                pdrop = tail.pop("pairs_dropped")[0]
+                budget = f"budget {pb}"
+            fstats.update(tail)
+            self.grid = grid
+            self._paste(cb, cap_b)
+            self._compact()
+            self._sync()
+        vals = self._read(
+            *[v for pair in fstats.values() for v in pair], pdrop,
+            (self.grid.occ - cfg.cell_k).clamp(min=0).sum(),
+            (self.grid.vocc - cfg.cell_k).clamp(min=0).sum())
+        msg = ", ".join(f"{k} {vals[2 * i]}->{vals[2 * i + 1]}"
+                        for i, k in enumerate(fstats))
+        self.log(f"filter it{it}: {msg} ({time.time() - t3:.1f}s)")
+        pdrop, cell_trunc, vcell_trunc = vals[-3:]
+        if pdrop:
+            self.log(f"WARNING: filterNeighbor dropped {pdrop} pairs "
+                     f"({budget})")
+        if cell_trunc or vcell_trunc:
+            self.log(f"  cell_k truncation: {cell_trunc} patches "
+                     f"(pgrids) / {vcell_trunc} (vpgrids) beyond "
+                     f"k={cfg.cell_k}")
+        self.stats.append({**stats, "cell_trunc": cell_trunc,
+                           "vcell_trunc": vcell_trunc,
+                           **{k: (vals[2 * i], vals[2 * i + 1])
+                              for i, k in enumerate(fstats)}})
 
     def _widen(self, mask, size: int):
         """A [size] bool mask holding `mask` in its prefix."""

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import device_constant
 from ..geom.cameras import CameraSet, get_unit
 from ..image.pyramid import PyramidSet
 from ..image.sample import inside_bimages, mask_all
@@ -21,8 +22,9 @@ from .config import EngineConfig, Thresholds
 from .grid import (CellTable, GridState, build_cell_table, cell_of,
                    count_cells, flat_cell_key, is_neighbor_idx,
                    rebuild_depth_maps, rebuild_occupancy)
+from .graphs import program
 from .patches import PatchCloud, append_patches, sized_nonzero
-from .process import process_candidates_chunked
+from .process import ProcessResult, process_candidates_chunked
 from . import views as V
 
 # 3x3 cell window offsets (findNeighbors margin 1)
@@ -68,7 +70,7 @@ def window_keys(cfg: EngineConfig, images, grids, offsets, sentinel: int):
     """Flat cell keys [P, T*W] of a window of offsets around every stored
     slot's cell, plus their validity mask."""
     w = len(offsets)
-    off = torch.tensor(offsets, dtype=torch.int64, device=images.device)
+    off = device_constant(tuple(offsets), torch.int64, images.device)
     t = images.shape[1]
     cx = grids[..., 0].long().repeat_interleave(w, -1) + off[:, 0].repeat(t)
     cy = grids[..., 1].long().repeat_interleave(w, -1) + off[:, 1].repeat(t)
@@ -84,10 +86,11 @@ class WaveStats(NamedTuple):
 
 
 def find_empty_blocks(cams, cfg: EngineConfig, thr: Thresholds,
-                      cloud: PatchCloud, tab: CellTable, fsel):
-    """Per frontier row, which of the 6 sectors lack neighbours
-    (expand.cpp:108-180), against the merged pgrids+vpgrids table.
-    Returns (cand_coord [F, 6, 4], cand_ok [F, 6])."""
+                      cloud: PatchCloud, tab: CellTable, fsel, fok):
+    """Per frontier row `fsel` [F] (those with `fok` set; the rest are
+    padding), which of the 6 sectors lack neighbours (expand.cpp:108-180),
+    against the merged pgrids+vpgrids table. Returns (cand_coord
+    [F, 6, 4], cand_ok [F, 6])."""
     fcoord = cloud.coord[fsel]
     fnormal = cloud.normal[fsel]
     fimages = cloud.images[fsel]
@@ -129,7 +132,7 @@ def find_empty_blocks(cams, cfg: EngineConfig, thr: Thresholds,
                      torch.where(m, whi, zero), accumulate=True)
     sector = torch.arange(6, device=fcoord.device)
     bit = (cloud.dflag[fsel][:, None] >> sector[None]) & 1
-    ok = (fills[:, :6] <= 0.0) & (bit == 0)
+    ok = (fills[:, :6] <= 0.0) & (bit == 0) & fok[:, None]
     a = 2 * math.pi * sector.to(fcoord.dtype) / 6.0
     cand = fcoord[:, None, :] + (torch.cos(a)[None, :, None]
                                  * xdir[:, None, :]
@@ -141,7 +144,8 @@ def find_empty_blocks(cams, cfg: EngineConfig, thr: Thresholds,
 class DiscoverResult(NamedTuple):
     """Gated, per-cell-deduped expansion candidates, best-score-first
     (row order = (frontier score2 rank, sector), the reference queue's
-    best-first order, expand.cpp:80-88)."""
+    best-first order, expand.cpp:80-88). `ncand` is the one value the
+    host reads to size the commit batch."""
 
     coord: torch.Tensor     # [F6, 4]
     normal: torch.Tensor    # [F6, 4]
@@ -151,37 +155,38 @@ class DiscoverResult(NamedTuple):
     sector: torch.Tensor    # [F6]
     sval: torch.Tensor      # [F6] candidate survives all gates
     overflow: torch.Tensor  # [P] frontier rows past the budget (retry)
+    ncand: torch.Tensor     # [] int32, sval.sum()
 
 
+@program(scene=3, static=("slack", "fbudget"))
 def expand_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
                     thr: Thresholds, cloud: PatchCloud, grid: GridState,
-                    frontier, slack: int,
-                    fbudget: int | None = None) -> DiscoverResult:
-    """Wave stage 1: the alive frontier rows ordered best score2 first
-    (ties to the lower row), sector discovery and every pre-refinement
-    gate of expandSub (expand.cpp:108-256). `slack` is checkCounts'
-    leniency: 0 on the first expand iteration, 1 after (expand.cpp:276).
-    `fbudget`: expand only the best `fbudget` frontier rows; the rest
-    come back in `overflow` (None: every row, and `overflow` empty)."""
+                    frontier, slack: int, fbudget: int) -> DiscoverResult:
+    """Wave stage 1 (reference expand.py:194-281): the best `fbudget`
+    alive frontier rows by score2 (ties to the lower row, as lax.top_k),
+    sector discovery and every pre-refinement gate of expandSub
+    (expand.cpp:108-256), at F6 = fbudget * 6 rows. Frontier rows past
+    the budget come back in `overflow`; padding rows (a budget above the
+    frontier) have `sval` False. `slack` is checkCounts' leniency: 0 on
+    the first expand iteration, 1 after (expand.cpp:276)."""
     dev = cloud.coord.device
+    p = cloud.capacity
     tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
     live = frontier & cloud.alive
-    rows = torch.nonzero(live).flatten()
-    order = torch.argsort(cloud.score2(thr.ncc)[rows], descending=True,
-                          stable=True)
-    fsel = rows[order]
-    overflow = torch.zeros_like(live)
-    if fbudget is not None:
-        overflow[fsel[fbudget:]] = True
-        fsel = fsel[:fbudget]
+    fscore = torch.where(live, cloud.score2(thr.ncc),
+                         torch.full_like(cloud.ncc, -math.inf))
+    fsel = torch.argsort(fscore, descending=True, stable=True)[:fbudget]
+    fok = fscore[fsel] > -math.inf
+    taken = torch.zeros(p, dtype=torch.bool, device=dev)
+    taken.scatter_(0, fsel, fok)
+    overflow = live & ~taken
 
-    cand, cok = find_empty_blocks(cams, cfg, thr, cloud, tab, fsel)
+    cand, cok = find_empty_blocks(cams, cfg, thr, cloud, tab, fsel, fok)
     f6 = fsel.shape[0] * 6
     sval = cok.reshape(-1)
     coord = cand.reshape(-1, 4)
     parent = fsel.repeat_interleave(6)
     sector = torch.arange(6, device=dev).repeat(fsel.shape[0])
-
     pimgs = cloud.images[parent]                             # [F6, T]
     pval = pimgs >= 0
     ix, iy = cell_of(cams, cfg.level, cfg.csize, coord[:, None, :], pimgs)
@@ -224,7 +229,10 @@ def expand_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     sval = sval & vmask.any(1)
     return DiscoverResult(coord=coord, normal=normal, vmask=vmask, ref=ref,
                           parent=parent, sector=sector, sval=sval,
-                          overflow=overflow)
+                          overflow=overflow,
+                          ncand=sval.sum().to(torch.int32))
+
+
 
 
 def _bump(grid: GridState, cfg: EngineConfig, thr: Thresholds, images,
@@ -241,49 +249,58 @@ def _bump(grid: GridState, cfg: EngineConfig, thr: Thresholds, images,
     return count_cells(key, cfg.tn, cfg.gh, cfg.gw), under.any(1)
 
 
-def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
-                  thr: Thresholds, visdata, cloud: PatchCloud,
-                  grid: GridState, disc: DiscoverResult, cbudget: int,
-                  refine_iters: int = 10, mesh=None, graphs=None):
-    """Wave stage 2: refine + postProcess the first `cbudget` surviving
-    candidates (best-first) and commit the successes. The batch has
-    `cbudget` rows: past the surviving candidates it is filled with
-    inactive rows (jnp.nonzero(size=cbudget), reference expand.py:301),
-    which are never appended, bump no count and mark no parent.
-    Candidates beyond the budget requeue their parents, as do the
-    discover stage's `overflow` rows (sized to this cloud's capacity by
-    the caller). Returns (cloud, grid, new_frontier [P], stats). `mesh`:
-    an engine mesh splitting the refine batch over ranks; `graphs`: a
-    models/graphs.RefineGraphs that runs its chunks."""
-    p = cloud.capacity
-    dev = cloud.coord.device
+class CommitBatch(NamedTuple):
+    """A commit's refine batch (the first `cbudget` surviving candidates,
+    inactive rows after them) and what the apply half needs of it."""
+
+    coord: torch.Tensor            # [C, 4]
+    normal: torch.Tensor           # [C, 4]
+    vmask: torch.Tensor            # [C, N]
+    ref: torch.Tensor              # [C]
+    active: torch.Tensor           # [C]
+    parent: torch.Tensor           # [C] parent row; p where inactive
+    sector: torch.Tensor           # [C]
+    overflow_parent: torch.Tensor  # [P] rows to requeue
+
+
+@program(static=("p", "cbudget"))
+def commit_select(disc: DiscoverResult, p: int, cbudget: int
+                  ) -> CommitBatch:
+    """Commit's select half (reference expand.py:299-316): the first
+    `cbudget` surviving candidates as the batch (jnp.nonzero(size=
+    cbudget)), padded with inactive rows that are never appended, bump
+    no count and mark no parent; the parents of candidates past the
+    budget and the discover stage's `overflow` rows (sized to the cloud
+    slice's `p` rows by the caller) are requeued."""
     f6 = disc.sval.shape[0]
-    if f6 == 0:
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        return cloud, grid, disc.overflow & cloud.alive, \
-            WaveStats(zero, zero, zero)
+    dev = disc.sval.device
     pos = sized_nonzero(disc.sval, cbudget, f6)
     active = pos < f6
     posc = pos.clamp(max=f6 - 1)
-    coord = disc.coord[posc]
-    normal = disc.normal[posc]
-    vmask = disc.vmask[posc] & active[:, None]
-    ref = disc.ref[posc]
-    parent = torch.where(active, disc.parent[posc], p)
-    sector = disc.sector[posc]
-
     taken = torch.zeros(f6 + 1, dtype=torch.bool, device=dev)
-    taken[pos] = True
+    taken.scatter_(0, pos, True)
     leftover = disc.sval & ~taken[:f6]
     overflow_parent = torch.zeros(p + 1, dtype=torch.bool, device=dev)
-    overflow_parent[torch.where(leftover, disc.parent, p)] = True
-    overflow_parent = overflow_parent[:p] | disc.overflow
+    overflow_parent.scatter_(0, torch.where(leftover, disc.parent, p), True)
+    return CommitBatch(
+        coord=disc.coord[posc], normal=disc.normal[posc],
+        vmask=disc.vmask[posc] & active[:, None], ref=disc.ref[posc],
+        active=active, parent=torch.where(active, disc.parent[posc], p),
+        sector=disc.sector[posc],
+        overflow_parent=overflow_parent[:p] | disc.overflow)
 
-    res = process_candidates_chunked(cams, pyr, cfg, thr, visdata, coord,
-                                     normal, vmask, ref, depth=1, grid=grid,
-                                     cloud=cloud, active=active,
-                                     refine_iters=refine_iters, mesh=mesh,
-                                     graphs=graphs)
+
+@program(scene=2, static=("cbudget",))
+def commit_apply(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
+                 cloud: PatchCloud, grid: GridState, active, parent, sector,
+                 overflow_parent, res: ProcessResult, cbudget: int):
+    """Commit's apply half (reference expand.py:323-390): failed sectors
+    mark their parents' dflag, successes bump their cells' counters and
+    are appended, and the new frontier is the appended rows that some
+    under-count cell requeues plus the requeued parents; then occupancy
+    and depth maps. Returns (cloud, grid, new_frontier [P], stats)."""
+    p = cloud.capacity
+    dev = cloud.coord.device
     success = res.success & active
 
     # parent dflag |= sector bit on failure (expand.cpp:98-103); a
@@ -308,11 +325,13 @@ def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     before = cloud.alive
     cloud2, dropped = append_patches(cloud, new, success)
     # appended slots are filled in the order of the success rows
-    app_idx = torch.nonzero(cloud2.alive & ~before).flatten()
-    req = requeue[torch.nonzero(success).flatten()][:app_idx.shape[0]]
-    new_frontier = torch.zeros(p, dtype=torch.bool, device=dev)
-    new_frontier[app_idx] = req
-    new_frontier = new_frontier | (overflow_parent & cloud2.alive)
+    app_idx = sized_nonzero(cloud2.alive & ~before, cbudget, p)
+    src_idx = sized_nonzero(success, cbudget, cbudget)
+    req = torch.cat([requeue, torch.zeros(1, dtype=torch.bool,
+                                          device=dev)])[src_idx]
+    new_frontier = torch.zeros(p + 1, dtype=torch.bool, device=dev)
+    new_frontier.scatter_(0, app_idx, req & (app_idx < p))
+    new_frontier = new_frontier[:p] | (overflow_parent & cloud2.alive)
 
     occ, vocc = rebuild_occupancy(cloud2, cfg.tn, cfg.gh, cfg.gw)
     dmin, didx = rebuild_depth_maps(cams, cloud2, cfg.level, cfg.csize,
@@ -321,6 +340,28 @@ def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     stats = WaveStats(accepted=success.sum(),
                       dropped=dropped, view_drops=res.view_drops)
     return cloud2, grid, new_frontier, stats
+
+
+def expand_commit(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
+                  thr: Thresholds, visdata, cloud: PatchCloud,
+                  grid: GridState, disc: DiscoverResult, cbudget: int,
+                  refine_iters: int = 10, mesh=None, graphs=None):
+    """Wave stage 2: refine + postProcess the first `cbudget` surviving
+    candidates (best-first) and commit the successes: `commit_select`,
+    process_candidates over the batch's chunks, `commit_apply`. Returns
+    (cloud, grid, new_frontier [P], stats). `mesh`: an engine mesh
+    splitting the refine batch over ranks; `graphs`: a
+    models/graphs.RefineGraphs that runs the two halves and the chunks
+    as CUDA graphs."""
+    b = commit_select(disc, cloud.capacity, cbudget, graphs=graphs)
+    res = process_candidates_chunked(cams, pyr, cfg, thr, visdata, b.coord,
+                                     b.normal, b.vmask, b.ref, depth=1,
+                                     grid=grid, cloud=cloud, active=b.active,
+                                     refine_iters=refine_iters, mesh=mesh,
+                                     graphs=graphs)
+    return commit_apply(cams, cfg, thr, cloud, grid, b.active, b.parent,
+                        b.sector, b.overflow_parent, res, cbudget,
+                        graphs=graphs)
 
 
 def expand_wave(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
@@ -334,7 +375,7 @@ def expand_wave(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     `budget` stay on the returned frontier."""
     slack = 0 if depth <= 1 else 1
     disc = expand_discover(cams, pyr, cfg, thr, cloud, grid, frontier,
-                           slack, fbudget)
+                           slack, fbudget, graphs=graphs)
     return expand_commit(cams, pyr, cfg, thr, visdata, cloud, grid, disc,
                          budget, refine_iters=refine_iters, mesh=mesh,
                          graphs=graphs)

@@ -3,18 +3,23 @@
 Counterpart of cmvs_pmvs_tpu/models/filter.py (reference filter.cpp):
 outside-gain, exact visibility, quadric-fit neighbourhood and small
 connected components, over sorted cell tables. Cell-mate queries cap at
-cfg.cell_k entries per cell like the reference package.
+cfg.cell_k entries per cell like the reference package. The stage runs
+as the reference package's static-shape programs (models/graphs):
+`run_filters_pre` (outside, exact), `count_neighbor_pairs` (the one
+scalar the host reads), then `run_filters_post` at a pair budget
+(neighbour, groups) or, past MAX_PAIRS_PER_PASS pairs, the neighbour
+pass in row chunks (`filter_neighbor_chunked`) and `run_filters_tail`.
 """
 from __future__ import annotations
 
 from dataclasses import replace
 
-import numpy as np
 import torch
 
 from ..geom.cameras import CameraSet, get_unit
 from .config import EngineConfig, Thresholds
 from .expand import OFFS9, _ortho, compute_radius, patch_unit, window_keys
+from .graphs import allowed_sync, program
 from .grid import (CellTable, GridState, build_cell_table,
                    count_window_pairs, is_neighbor_comp, is_neighbor_idx,
                    is_visible, rebuild_depth_maps, rebuild_occupancy,
@@ -28,7 +33,9 @@ from . import views as V
 # verdicts are independent, so chunking changes no decision).
 MAX_PAIRS_PER_PASS = 16 << 20
 # Label-propagation rounds of filterSmallGroups (pointer jumping makes
-# the reach grow geometrically; the loop stops early at a fixpoint)
+# the reach grow geometrically). All of them run on the device: past the
+# fixpoint a round changes nothing, so the labels equal an early-exit
+# loop's without a host read per round.
 PROP_ITERS = 24
 OFFS25 = [(ox, oy) for oy in range(-2, 3) for ox in range(-2, 3)]
 
@@ -172,11 +179,14 @@ def _neighbor_query_keys(cfg, cloud: PatchCloud, sentinel: int):
 
 
 def _filter_neighbor_core(cams, cfg, thr, qcloud: PatchCloud,
-                          cloud: PatchCloud, tab: CellTable, key, oko):
+                          cloud: PatchCloud, tab: CellTable,
+                          pair_budget: int):
     """filterNeighbor verdicts for the query rows `qcloud` (a row slice
-    of `cloud`) over all their window pairs: reject [PQ] bool. The quad
-    fit's normal equations are accumulated as raw moments of the
-    tangent-frame coordinates (reference filter.cpp:403-455)."""
+    of `cloud`, whose cell table `tab` is) over their window pairs,
+    compacted to `pair_budget` (reference filter.py:281-414): (reject
+    [PQ] bool, dropped pairs). Pairs past the budget's valid prefix go to
+    the sink row. The quad fit's normal equations are accumulated as raw
+    moments of the tangent-frame coordinates (filter.cpp:403-455)."""
     p = qcloud.capacity
     dev = qcloud.coord.device
     ivalid = qcloud.images >= 0
@@ -184,7 +194,9 @@ def _filter_neighbor_core(cams, cfg, thr, qcloud: PatchCloud,
                                         qcloud.normal, qcloud.images, ivalid)
     unit_n = patch_unit(cams, cfg, qcloud.coord, qcloud.images, ivalid)
     xdir, ydir = _ortho(qcloud.normal)
-    rows, eidx = window_pairs(tab, key, oko, cfg.cell_k)
+    key, oko = _neighbor_query_keys(cfg, qcloud, tab.sentinel)
+    rows, eidx, pval, dropped = window_pairs(tab, key, oko, pair_budget,
+                                             cfg.cell_k)
     q = tab.pid[eidx]
 
     rnorm = radius.clamp(min=1e-30)
@@ -198,7 +210,8 @@ def _filter_neighbor_core(cams, cfg, thr, qcloud: PatchCloud,
                          (Q[:, 0], Q[:, 1], Q[:, 2]),
                          (Q[:, 3], Q[:, 4], Q[:, 5]), Q[:, 6], R[:, 7],
                          thr.neighbor * 4.0, radius=R[:, 9])
-    mrow = torch.where(m, rows, torch.full_like(rows, p))
+    m = pval & m
+    mrow = torch.where(m, rows, torch.full_like(rows, p)).long()
     mf = m.to(torch.float32)
     dxq = Q[:, 0] - R[:, 0]
     dyq = Q[:, 1] - R[:, 1]
@@ -265,33 +278,56 @@ def _filter_neighbor_core(cams, cfg, thr, qcloud: PatchCloud,
     u = u[:, :cfg.tau].sum(1) / inum.clamp(min=1)
     residual = res_sum / torch.where(u == 0.0, torch.ones_like(u), u) \
         / (cnt - 5).clamp(min=1)
-    return ((cnt < 6) | (residual >= thr.quad)) & qcloud.alive
+    return ((cnt < 6) | (residual >= thr.quad)) & qcloud.alive, dropped
 
 
 def filter_neighbor(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
-                    cloud: PatchCloud, grid: GridState,
-                    max_pairs: int = MAX_PAIRS_PER_PASS) -> PatchCloud:
+                    cloud: PatchCloud, grid: GridState, pair_budget: int):
     """Reject patches with < 6 coplanar neighbours or a bad quadric fit
     (filter.cpp:357-462 filterNeighbor + filterQuad). Neighbours come from
     the 5x5 windows around the patch's cell in every stored target image,
     pgrids and vpgrids occupants alike, duplicates kept and the patch
-    itself included, as the reference's findNeighbors does. Rows run in
-    chunks of at most `max_pairs` window pairs."""
+    itself included, as the reference's findNeighbors does; one pass over
+    at most `pair_budget` window pairs (`count_neighbor_pairs` gives the
+    need). Returns (cloud, dropped pairs)."""
     tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
-    key, oko = _neighbor_query_keys(cfg, cloud, tab.sentinel)
-    cum = torch.cumsum(count_window_pairs(tab, key, oko, cfg.cell_k),
-                       0).cpu().numpy()
-    # row chunks of ~max_pairs pairs (each exceeds it by at most one row)
-    nchunk = max(1, -(-int(cum[-1]) // max_pairs)) if len(cum) else 1
-    cuts = np.searchsorted(cum, np.arange(1, nchunk) * max_pairs)
-    bounds = [0, *sorted({int(c) for c in cuts
-                          if 0 < c < cloud.capacity}), cloud.capacity]
-    rejects = []
-    for a, b in zip(bounds[:-1], bounds[1:]):
-        qcloud = cloud.map(lambda t: t[a:b])
-        rejects.append(_filter_neighbor_core(cams, cfg, thr, qcloud, cloud,
-                                             tab, key[a:b], oko[a:b]))
-    return replace(cloud, alive=cloud.alive & ~torch.cat(rejects))
+    reject, dropped = _filter_neighbor_core(cams, cfg, thr, cloud, cloud,
+                                            tab, pair_budget)
+    return replace(cloud, alive=cloud.alive & ~reject), dropped
+
+
+def _group_graph(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
+                 cloud: PatchCloud):
+    """filterSmallGroups' graph: each row's candidates qn [P, 9*K] in the
+    3x3 reference-image cells around its own and which of them are alive
+    isNeighbor neighbours of an alive row, mn [P, 9*K]."""
+    tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
+    key, ok = window_keys(cfg, cloud.images[:, :1], cloud.grids[:, :1],
+                          OFFS9, tab.sentinel)
+    pids, hit = tab.lookup_flat(key, cfg.cell_k)            # [P, 9*K]
+    qn = pids.clamp(min=0)
+    hit = hit & ok.repeat_interleave(cfg.cell_k, -1) & (pids >= 0)
+    rows = torch.arange(cloud.capacity, device=qn.device)
+    neigh = is_neighbor_idx(cloud.coord, cloud.normal, cloud.dscale,
+                            rows[:, None], qn,
+                            _pair_hunit(cams, cfg, cloud, qn),
+                            thr.neighbor2)
+    return hit & neigh & cloud.alive[qn] & cloud.alive[:, None], qn
+
+
+def component_labels(mn, qn, alive):
+    """Each alive row's component label (the least row it reaches over
+    `mn`), dead rows P, by PROP_ITERS rounds of min-label propagation
+    with pointer jumping on the device."""
+    p = alive.shape[0]
+    rows = torch.arange(p, device=alive.device)
+    label = torch.where(alive, rows, torch.full_like(rows, p))
+    sink = torch.full((1,), p, dtype=label.dtype, device=alive.device)
+    for _ in range(PROP_ITERS):
+        nl = torch.where(mn, label[qn], torch.full_like(qn, p)).amin(1)
+        nl = torch.minimum(label, nl)
+        label = torch.minimum(nl, torch.cat([nl, sink])[nl])
+    return label
 
 
 def filter_small_groups(cams: CameraSet, cfg: EngineConfig,
@@ -299,33 +335,13 @@ def filter_small_groups(cams: CameraSet, cfg: EngineConfig,
                         grid: GridState) -> PatchCloud:
     """Remove connected components smaller than max(20, P/10000) over the
     isNeighbor graph of 3x3 reference-image cells (filter.cpp:524-665),
-    by min-label propagation with pointer jumping."""
+    the threshold computed on the device."""
     p = cloud.capacity
-    dev = cloud.coord.device
-    tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
-    key, ok = window_keys(cfg, cloud.images[:, :1], cloud.grids[:, :1],
-                          OFFS9, tab.sentinel)
-    pids, hit = tab.lookup_flat(key, cfg.cell_k)            # [P, 9*K]
-    qn = pids.clamp(min=0)
-    hit = hit & ok.repeat_interleave(cfg.cell_k, -1) & (pids >= 0)
-    rows = torch.arange(p, device=dev)
-    neigh = is_neighbor_idx(cloud.coord, cloud.normal, cloud.dscale,
-                            rows[:, None], qn,
-                            _pair_hunit(cams, cfg, cloud, qn),
-                            thr.neighbor2)
-    mn = hit & neigh & cloud.alive[qn] & cloud.alive[:, None]
-    label = torch.where(cloud.alive, rows, torch.full_like(rows, p))
-    for _ in range(PROP_ITERS):
-        nl = torch.where(mn, label[qn], torch.full_like(qn, p)).amin(1)
-        nl = torch.minimum(label, nl)
-        nl = torch.minimum(nl, torch.cat([nl, nl.new_tensor([p])])[nl])
-        changed = bool((nl != label).any())
-        label = nl
-        if not changed:
-            break
-    sizes = torch.zeros(p + 1, dtype=torch.int64, device=dev)
+    mn, qn = _group_graph(cams, cfg, thr, cloud)
+    label = component_labels(mn, qn, cloud.alive)
+    sizes = torch.zeros(p + 1, dtype=torch.int64, device=qn.device)
     sizes.index_add_(0, label, cloud.alive.to(torch.int64))
-    threshold = max(20, int(cloud.alive.sum()) // 10000)
+    threshold = (cloud.alive.sum() // 10000).clamp(min=20)
     return replace(cloud, alive=cloud.alive & ~(sizes[label] < threshold))
 
 
@@ -347,23 +363,168 @@ def refresh_visibility(cams: CameraSet, pyr, cfg: EngineConfig,
     return cloud, replace(grid, occ=occ, vocc=vocc)
 
 
-def run_filters(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
-                cloud: PatchCloud, grid: GridState):
-    """The filter stage (CFilter::run, filter.cpp:13-27). Returns
-    (cloud, grid, stats) with stats[name] = (count before, count after)
-    as device scalars."""
+@program(scene=3)
+def run_filters_pre(cams: CameraSet, pyr, cfg: EngineConfig,
+                    thr: Thresholds, cloud: PatchCloud, grid: GridState):
+    """Filter stage part 1 (reference filter.py:512-529): filterOutside
+    and filterExact with their visibility rebuilds (CFilter::run,
+    filter.cpp:13-21). Returns (cloud, grid, stats), stats[name] =
+    (count before, count after) as device scalars."""
     stats = {}
-    passes = (("outside", lambda c, g: filter_outside(cams, cfg, thr, c, g)),
-              ("exact", lambda c, g: filter_exact(cams, pyr, cfg, thr, c,
-                                                  g)),
-              ("neighbor", lambda c, g: filter_neighbor(cams, cfg, thr, c,
-                                                        g)),
-              ("groups", lambda c, g: filter_small_groups(cams, cfg, thr,
-                                                          c, g)))
     cloud, grid = refresh_visibility(cams, pyr, cfg, thr, cloud, grid)
-    for name, fn in passes:
+    for name, fn in (("outside", lambda c, g: filter_outside(
+                         cams, cfg, thr, c, g)),
+                     ("exact", lambda c, g: filter_exact(
+                         cams, pyr, cfg, thr, c, g))):
         n0 = cloud.count()
         cloud = fn(cloud, grid)
         stats[name] = (n0, cloud.count())
         cloud, grid = refresh_visibility(cams, pyr, cfg, thr, cloud, grid)
+    return cloud, grid, stats
+
+
+@program(scene=1)
+def count_neighbor_pairs(cfg: EngineConfig, cloud: PatchCloud):
+    """The exact filterNeighbor pair count of `cloud` (reference
+    filter.py:532-540): the one scalar the host reads to size
+    run_filters_post's pair budget."""
+    tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
+    key, oko = _neighbor_query_keys(cfg, cloud, tab.sentinel)
+    return count_window_pairs(tab, key, oko, cfg.cell_k)
+
+
+def _rows(cloud: PatchCloud, row0, pc: int) -> PatchCloud:
+    """Rows [row0, row0 + pc) of `cloud`, `row0` a device scalar."""
+    idx = row0 + torch.arange(pc, device=cloud.coord.device)
+    return cloud.map(lambda a: a[idx])
+
+
+@program(scene=1, static=("pc",))
+def count_neighbor_pairs_rows(cfg: EngineConfig, cloud: PatchCloud, row0,
+                              pc: int):
+    """The exact pair count of query rows [row0, row0 + pc) (reference
+    filter.py:543-552)."""
+    tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
+    key, oko = _neighbor_query_keys(cfg, _rows(cloud, row0, pc),
+                                    tab.sentinel)
+    return count_window_pairs(tab, key, oko, cfg.cell_k)
+
+
+@program(scene=2, static=("pc", "pair_budget"))
+def filter_neighbor_rows(cams: CameraSet, cfg: EngineConfig,
+                         thr: Thresholds, cloud: PatchCloud, row0, pc: int,
+                         pair_budget: int):
+    """filterNeighbor verdicts for query rows [row0, row0 + pc) against
+    the whole cloud's cell table (reference filter.py:555-566). Returns
+    (reject [pc], dropped)."""
+    tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
+    return _filter_neighbor_core(cams, cfg, thr, _rows(cloud, row0, pc),
+                                 cloud, tab, pair_budget)
+
+
+def filter_neighbor_chunked(cams: CameraSet, cfg: EngineConfig,
+                            thr: Thresholds, cloud: PatchCloud,
+                            total_pairs: int,
+                            max_pairs: int = MAX_PAIRS_PER_PASS,
+                            graphs=None, read=None):
+    """filterNeighbor in row chunks of about half `max_pairs` pairs each
+    (reference filter.py:569-609): each chunk's pairs are counted (a host
+    read, through `read(scalar) -> int` where given), a chunk past
+    `max_pairs` is halved and retried, and its rows run at their own
+    `_bucket15` budget. Verdicts are per patch, so the result equals the
+    single pass's. Returns (cloud, dropped pairs, a device scalar)."""
+    from .engine import _bucket15
+    p = cloud.capacity
+    dev = cloud.coord.device
+    nchunk = max(2, -(-total_pairs // max(max_pairs // 2, 1)))
+    pc0 = min(p, _bucket15(-(-p // nchunk), p))
+    pc = pc0
+    reject = torch.zeros(p, dtype=torch.bool, device=dev)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    row0 = 0
+    while row0 < p:
+        start = min(row0, p - pc)
+        start_t = torch.full((), start, dtype=torch.int64, device=dev)
+        cnt = count_neighbor_pairs_rows(cfg, cloud, start_t, pc,
+                                        graphs=graphs)
+        if read is not None:
+            cnt = read(cnt)
+        else:
+            with allowed_sync():
+                cnt = int(cnt)
+        if cnt > max_pairs and pc > 1024:
+            # a dense region: halve the span and retry
+            pc = max(1024, _bucket15(pc // 2, p))
+            continue
+        pb = _bucket15(max(cnt, 1024), 1 << 62)
+        rej, dr = filter_neighbor_rows(cams, cfg, thr, cloud, start_t, pc,
+                                       pb, graphs=graphs)
+        reject[start:start + pc] = rej
+        dropped = dropped + dr
+        row0 = start + pc
+        # grow back toward the target span after a dense region
+        pc = min(pc0, _bucket15(pc * 2, p)) if pc < pc0 else pc0
+    return replace(cloud, alive=cloud.alive & ~reject), dropped
+
+
+@program(scene=3)
+def run_filters_tail(cams: CameraSet, pyr, cfg: EngineConfig,
+                     thr: Thresholds, cloud: PatchCloud, grid: GridState):
+    """Filter stage part 2b (reference filter.py:612-625): the visibility
+    rebuild, filterSmallGroups and a rebuild, after a chunked neighbour
+    pass."""
+    cloud, grid = refresh_visibility(cams, pyr, cfg, thr, cloud, grid)
+    n3 = cloud.count()
+    cloud = filter_small_groups(cams, cfg, thr, cloud, grid)
+    stats = {"groups": (n3, cloud.count())}
+    cloud, grid = refresh_visibility(cams, pyr, cfg, thr, cloud, grid)
+    return cloud, grid, stats
+
+
+@program(scene=3, static=("pair_budget",))
+def run_filters_post(cams: CameraSet, pyr, cfg: EngineConfig,
+                     thr: Thresholds, cloud: PatchCloud, grid: GridState,
+                     pair_budget: int):
+    """Filter stage part 2 (reference filter.py:628-649): filterNeighbor
+    at `pair_budget` (from count_neighbor_pairs) and filterSmallGroups
+    with their visibility rebuilds (filter.cpp:22-27); stats also carry
+    the pairs the budget dropped, as ("pairs_dropped": (n, n))."""
+    n2 = cloud.count()
+    cloud, pairs_dropped = filter_neighbor(cams, cfg, thr, cloud, grid,
+                                           pair_budget)
+    stats = {"neighbor": (n2, cloud.count())}
+    cloud, grid, tail = run_filters_tail.body(cams, pyr, cfg, thr, cloud,
+                                              grid)
+    stats.update(tail)
+    stats["pairs_dropped"] = (pairs_dropped, pairs_dropped)
+    return cloud, grid, stats
+
+
+def run_filters(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
+                cloud: PatchCloud, grid: GridState, pair_budget: int = 0,
+                graphs=None):
+    """The filter stage (CFilter::run, filter.cpp:13-27; reference
+    filter.py:652-678): pre, then post at the counted pair budget (unless
+    `pair_budget` forces one) or, past MAX_PAIRS_PER_PASS pairs, the
+    chunked neighbour pass and tail. Returns (cloud, grid, stats) with
+    stats[name] = (count before, count after) and "pairs_dropped"."""
+    cloud, grid, stats = run_filters_pre(cams, pyr, cfg, thr, cloud, grid,
+                                         graphs=graphs)
+    if pair_budget <= 0:
+        with allowed_sync():
+            need = int(count_neighbor_pairs(cfg, cloud, graphs=graphs))
+        if need > MAX_PAIRS_PER_PASS:
+            n0 = cloud.count()
+            cloud, dropped = filter_neighbor_chunked(cams, cfg, thr, cloud,
+                                                     need, graphs=graphs)
+            stats["neighbor"] = (n0, cloud.count())
+            cloud, grid, tail = run_filters_tail(cams, pyr, cfg, thr, cloud,
+                                                 grid, graphs=graphs)
+            stats.update(tail)
+            stats["pairs_dropped"] = (dropped, dropped)
+            return cloud, grid, stats
+        pair_budget = max(1024, 1 << (need - 1).bit_length())
+    cloud, grid, post = run_filters_post(cams, pyr, cfg, thr, cloud, grid,
+                                         pair_budget, graphs=graphs)
+    stats.update(post)
     return cloud, grid, stats

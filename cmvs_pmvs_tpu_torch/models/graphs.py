@@ -1,5 +1,5 @@
-"""One CUDA graph per refine bucket: the candidate pipeline captured once
-per row count and replayed.
+"""CUDA graphs of the engine's static-shape programs: each captured once
+per static key and replayed.
 
 Counterpart of the JAX package's jit specialisations of seed_commit and
 expand_commit (`jax.jit(static_argnames=("cfg", "cbudget",
@@ -28,19 +28,46 @@ one memory pool: they replay one after another on one stream.
 
 A key's first call runs the chunk eagerly on the capture stream (its
 result is the call's; it also loads what loads lazily: the kernel
-library, device constants, library handles), then captures it; later
-calls replay. Kernel launches count as they would eagerly
-(ops/kernels.recording): the warm-up's as they run, a capture's not at
-all, each replay's as the graph holds them. A capture that fails raises;
+library, device constants, library handles), then captures it with
+capture_begin / capture_end (torch.cuda.graph would also synchronize
+and empty the allocator's cache at every capture; this empties it only
+when less than half the card is free, as a capture cannot free cached
+blocks itself); later calls replay. Kernel launches count as they would
+eagerly (ops/kernels.recording): the warm-up's as they run, a capture's
+not at all, each replay's as the graph holds them. A capture that fails raises;
 nothing falls back to the eager path. The launch diagnostics that keep
 tensors or sum in Python (`Entry.capture`, `windows.clip_stats`,
 `incc_fan_v1.clip_stats`) would see the capture only, so a call with
 one of them set raises: they are read on `graphs=False` runs.
+
+The rest of a wave and the filter stage are programs (`program`, the
+counterpart of the JAX package's `jax.jit(static_argnames=...)`
+functions): expand_discover, the commit's select and apply halves, the
+filters' pre / post / tail passes, the neighbour pair counts, the
+chunked neighbour pass's row programs and seed_discover. Called with
+`graphs=` a RefineGraphs, a program is captured once per key - its
+name, its static arguments, the shapes and dtypes of its tensor inputs,
+its scene (cameras, pyramid, config, view data; tensors by identity)
+and `switches()` - and replayed after that; its tensor inputs are
+copied into static buffers and its outputs cloned out, as a chunk's.
+The same rules hold: the first call of a key runs eagerly (the warm-up),
+launches count through `kernels.recording` / `replayed`, a failed
+capture raises, and every graph of a cache shares its memory pool. With
+`graphs=None` a program runs op by op; the code is the same.
+
+`allowed_sync` marks the host reads that the engine makes on purpose
+(the JAX engine's packed scalar reads); a caller that runs a stretch of
+the engine under `torch.cuda.set_sync_debug_mode("error")` finds every
+other read. A key's first call (its eager warm-up and its capture) is
+such a stretch too.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
@@ -120,9 +147,122 @@ class CapturedChunk:
         self.replays += 1
 
 
+@dataclass
+class CapturedProgram(CapturedChunk):
+    """One captured program: `rows` are its static input buffers, `out`
+    its output tensors, `tree` the structure they are rebuilt into."""
+
+    name: str = ""
+    tree: object = None
+
+
+@contextmanager
+def allowed_sync():
+    """A stretch in which the host may wait on the card on purpose: the
+    CUDA sync debug mode is off inside it and restored after it."""
+    if not torch.cuda.is_available():
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def flatten(obj, leaves: list):
+    """The structure of `obj` (tensors, dataclasses, named tuples,
+    tuples, lists, dicts, and hashable constants), its tensors appended
+    to `leaves`; `unflatten` rebuilds it."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return ("T",)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        names = tuple(f.name for f in dataclasses.fields(obj))
+        return ("D", type(obj), names,
+                tuple(flatten(getattr(obj, n), leaves) for n in names))
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return ("N", type(obj), tuple(flatten(v, leaves) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return (type(obj), tuple(flatten(v, leaves) for v in obj))
+    if isinstance(obj, dict):
+        return ("d", tuple(obj), tuple(flatten(v, leaves)
+                                       for v in obj.values()))
+    hash(obj)
+    return ("c", obj)
+
+
+def unflatten(tree, leaves):
+    """`flatten`'s structure `tree` rebuilt around the tensors of the
+    iterator `leaves`."""
+    kind = tree[0]
+    if kind == "T":
+        return next(leaves)
+    if kind == "D":
+        return tree[1](**{n: unflatten(t, leaves)
+                          for n, t in zip(tree[2], tree[3])})
+    if kind == "N":
+        return tree[1](*(unflatten(t, leaves) for t in tree[2]))
+    if kind in (tuple, list):
+        return kind(unflatten(t, leaves) for t in tree[1])
+    if kind == "d":
+        return {k: unflatten(t, leaves) for k, t in zip(tree[1], tree[2])}
+    return tree[1]
+
+
+def scene_key(scene: tuple) -> tuple:
+    """What a program's scene arguments contribute to its key: tensors
+    and the tensors of dataclasses by identity (the cache keeps them
+    alive), anything else by value (the engine config)."""
+    out = []
+    for o in scene:
+        if isinstance(o, torch.Tensor) or (
+                dataclasses.is_dataclass(o) and any(
+                    isinstance(getattr(o, f.name), torch.Tensor)
+                    for f in dataclasses.fields(o))):
+            out.append(tensor_ids(o))
+        else:
+            out.append(o)
+    return tuple(out)
+
+
+def program(scene: int = 0, static: tuple = ()):
+    """Make `fn` a static-shape program: its first `scene` parameters
+    are the scene, the parameters named in `static` static sizes, the
+    rest its inputs. The result takes one more keyword, `graphs`: None
+    runs `fn` op by op; a RefineGraphs replays its graph for the call's
+    key (captured on the key's first call)."""
+    def deco(fn):
+        sig = inspect.signature(fn)
+        names = list(sig.parameters)
+
+        @functools.wraps(fn)
+        def call(*args, graphs=None, **kwargs):
+            if graphs is None:
+                return fn(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = bound.arguments
+            return graphs.call(
+                fn.__name__, fn, tuple(a[n] for n in names[:scene]),
+                {n: a[n] for n in names[scene:] if n not in static},
+                {n: a[n] for n in static})
+
+        # `body`, not `__wrapped__`: a wrapper of the program (the
+        # profile drivers') is what `__wrapped__` marks
+        del call.__wrapped__
+        call.body = fn
+        return call
+
+    return deco
+
+
 class RefineGraphs:
-    """Captured chunk calls by `graph_key`: an engine's own, or shared by
-    the engines that one caller builds on one loaded scene (PMVSEngine(
+    """The engine's CUDA graphs on one device, with one memory pool and
+    one capture stream: the refine chunks by `graph_key` (`process`) and
+    the programs by theirs (`call`) - an engine's own, or shared by the
+    engines that one caller builds on one loaded scene (PMVSEngine(
     graphs=RefineGraphs(...)))."""
 
     def __init__(self, device):
@@ -133,17 +273,96 @@ class RefineGraphs:
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
         self.graphs: dict = {}
-        self._scenes: dict = {}   # key -> the scene tensors keyed by id
+        self._scenes: dict = {}   # key -> the scene objects keyed by id
         self._thr = None          # static Thresholds
         self._state: dict = {}    # (cap, grid shape) -> (cloud, grid)
 
     def stats(self) -> dict:
-        """Graphs captured, their capture seconds and replays."""
+        """Graphs captured, their capture seconds and replays, the
+        refine chunks' row counts and, by program, (captured, replays)."""
+        progs: dict = {}
+        for g in self.graphs.values():
+            if isinstance(g, CapturedProgram):
+                c, r = progs.get(g.name, (0, 0))
+                progs[g.name] = (c + 1, r + g.replays)
         return {"graphs": len(self.graphs),
                 "capture_seconds": sum(g.seconds
                                        for g in self.graphs.values()),
                 "replays": sum(g.replays for g in self.graphs.values()),
-                "rows": sorted({k[0] for k in self.graphs})}
+                "rows": sorted({k[0] for k, g in self.graphs.items()
+                                if not isinstance(g, CapturedProgram)}),
+                "programs": progs}
+
+    def call(self, name: str, fn, scene: tuple, inputs: dict,
+             static: dict):
+        """fn(*scene, **inputs, **static), replayed from the graph of its
+        key, or run and captured on the key's first call."""
+        check_graph_safe()
+        leaves: list = []
+        tree = flatten(inputs, leaves)
+        key = (name, scene_key(scene), tree,
+               tuple((tuple(t.shape), t.dtype) for t in leaves),
+               tuple(sorted(static.items())), switches())
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture_program(key, name, fn, scene, leaves,
+                                         tree, static)
+        for dst, src in zip(g.rows, leaves):
+            dst.copy_(src)
+        g.graph.replay()
+        g.account()
+        return unflatten(g.tree, iter([t.clone() for t in g.out]))
+
+    def _captured(self, key, call, scene):
+        """Warm `call` up on the capture stream, capture it, and store
+        the graph under `key`; returns (warm-up result, graph, output,
+        launches held, capture seconds)."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with allowed_sync(), torch.cuda.stream(self.stream):
+            res = call()
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            # a capture cannot free cached blocks to make room for its
+            # pool: with less than half the card free, free them first
+            free, total = torch.cuda.mem_get_info(self.device)
+            if free < total // 2:
+                torch.cuda.empty_cache()
+            with kernels.recording() as held:
+                graph.capture_begin(pool=self.pool)
+                try:
+                    out = call()
+                finally:
+                    graph.capture_end()
+            seconds = time.perf_counter() - t0
+        cur.wait_stream(self.stream)
+        self._scenes[key] = scene
+        return res, graph, out, dict(held), seconds
+
+    def _capture_program(self, key, name, fn, scene, leaves, tree, static):
+        rows = [t.clone() for t in leaves]
+
+        def call():
+            return fn(*scene, **unflatten(tree, iter(rows)), **static)
+
+        res, graph, out, held, seconds = self._captured(key, call, scene)
+        # a warm-up output that is an input buffer (a field the program
+        # passes through) is cloned: the next call overwrites the buffer
+        bufs = {t.untyped_storage().data_ptr() for t in rows}
+        res_leaves: list = []
+        res_tree = flatten(res, res_leaves)
+        res_leaves = [t.clone() if t.untyped_storage().data_ptr() in bufs
+                      else t for t in res_leaves]
+        for t in res_leaves:
+            t.record_stream(torch.cuda.current_stream(self.device))
+        res = unflatten(res_tree, iter(res_leaves))
+        out_leaves: list = []
+        out_tree = flatten(out, out_leaves)
+        self.graphs[key] = CapturedProgram(graph, rows, out_leaves, held,
+                                           seconds, name=name, tree=out_tree)
+        return res
+
+
 
     def _static_thr(self, thr: Thresholds) -> Thresholds:
         names = [f.name for f in dataclasses.fields(thr)]
@@ -216,19 +435,9 @@ class RefineGraphs:
                 depth=depth, grid=grid_s, cloud=cloud_s,
                 active=static["active"], refine_iters=refine_iters)
 
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            res = call()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with kernels.recording() as held:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                out = call()
-        cur.wait_stream(self.stream)
+        res, graph, out, held, seconds = self._captured(
+            key, call, (cams, pyr, visdata))
         for t in res:
-            t.record_stream(cur)
-        self.graphs[key] = CapturedChunk(graph, static, out, dict(held),
-                                         time.perf_counter() - t0)
-        self._scenes[key] = (cams, pyr, visdata)
+            t.record_stream(torch.cuda.current_stream(self.device))
+        self.graphs[key] = CapturedChunk(graph, static, out, held, seconds)
         return res

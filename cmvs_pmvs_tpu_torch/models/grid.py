@@ -13,7 +13,7 @@ import torch
 
 from ..geom.cameras import CameraSet, PROJ_SENTINEL, get_unit, \
     level_projection, project, unit3
-from .patches import PatchCloud
+from .patches import PatchCloud, sized_nonzero
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -213,37 +213,73 @@ def build_cell_table(cloud: PatchCloud, tn: int, gh: int, gw: int,
         images.shape).reshape(-1)
     skey, order = torch.sort(key, stable=True)
     e = skey.shape[0]
-    cnt = torch.bincount(skey, minlength=sentinel + 1)
-    start = torch.cumsum(cnt, 0) - cnt
-    cnt[sentinel] = 0
-    start[sentinel] = e
+    # each cell's run by binary search in the sorted keys: bincount reads
+    # its largest key back to the host (models/graphs captures this), and
+    # a scatter-add piles every dead slot onto the sentinel's counter
+    cells = torch.arange(sentinel + 1, dtype=skey.dtype, device=dev)
+    start = torch.searchsorted(skey, cells)
+    cnt = torch.searchsorted(skey, cells, right=True) - start
+    # slices, not scalar indices: a scalar index_put copies from the host
+    cnt[sentinel:] = 0
+    start[sentinel:] = e
     return CellTable(key=skey, pid=pid[order], start=start, cnt=cnt,
                      sentinel=sentinel)
 
 
-def window_pairs(tab: CellTable, cell_key, ok, k: int):
+def window_pairs(tab: CellTable, cell_key, ok, pair_budget: int, k: int):
     """Every (query row, cell occupant) pair of the [B, M] query cells,
-    taken in (row, slot, run-position) order and capped at k per cell.
-    Returns (rows [PB], eidx [PB]) with eidx an entry of `tab`."""
+    compacted to a static `pair_budget` (reference grid.py:286-345): in
+    (row, slot, run-position) order, capped at k per cell. Returns (rows
+    [PB], eidx [PB], valid [PB], dropped []): pair i joins query row
+    rows[i] with table entry eidx[i] where valid[i]; `dropped` counts the
+    pairs past the budget, on the device. Two stages: a sized
+    compaction of the non-empty query slots, then each slot's run
+    expanded by cumsum, a scatter-max of the slot index at its offset
+    and a running max. int32 indices, as the reference's."""
     b, m = cell_key.shape
+    e = tab.key.shape[0]
+    dev = cell_key.device
+    i32 = torch.int32
     ck = cell_key.clamp(0, tab.sentinel - 1)
     okq = ok & (cell_key >= 0) & (cell_key < tab.sentinel)
     cnt = torch.where(okq, tab.cnt[ck].clamp(max=k),
-                      torch.zeros_like(ck)).reshape(-1)
-    start = tab.start[ck].reshape(-1)
-    slot = torch.repeat_interleave(torch.arange(b * m, device=ck.device),
-                                   cnt)
-    first = torch.cumsum(cnt, 0) - cnt
-    pos = torch.arange(slot.numel(), device=ck.device) - first[slot]
-    return slot // m, start[slot] + pos
+                      torch.zeros_like(ck)).reshape(-1).to(i32)
+    start = tab.start[ck].reshape(-1).to(i32)
+
+    # stage 1: the non-empty query slots, in order
+    qpos = sized_nonzero(cnt > 0, pair_budget, -1)
+    qval = qpos >= 0
+    qp = qpos.clamp(min=0)
+    qrow = (qp // m).to(i32)
+    qcnt = torch.where(qval, cnt[qp], torch.zeros_like(cnt[qp]))
+    qstart = start[qp]
+
+    # stage 2: slot i owns pairs [offs[i], offs[i] + qcnt[i]); a pair's
+    # slot is the last slot whose run starts at or before it. The
+    # reference scatters each slot's index at its offset and carries it
+    # forward with a running max; a binary search over the offsets (the
+    # compacted slots' runs are non-empty, so their offsets increase)
+    # gives the same slot on every valid pair - a [PB]-long cummax is one
+    # sequential scan on CUDA
+    offs = torch.cumsum(qcnt, 0, dtype=i32) - qcnt
+    total = offs[-1] + qcnt[-1]
+    pos = torch.arange(pair_budget, dtype=i32, device=dev)
+    qi = (torch.searchsorted(offs, pos, right=True) - 1).clamp(min=0)
+    valid = pos < total.clamp(max=pair_budget)
+    rows = qrow[qi]
+    eidx = (qstart[qi] + (pos - offs[qi])).clamp(0, e - 1)
+    dropped = (cnt.sum(dtype=torch.int64)
+               - valid.sum(dtype=torch.int64)).clamp(min=0)
+    return rows, eidx, valid, dropped
 
 
 def count_window_pairs(tab: CellTable, cell_key, ok, k: int):
-    """Per-row pair counts a window_pairs call yields: [B]."""
+    """The pairs a window_pairs call needs (same gates): a device
+    scalar, to size `pair_budget` before the pass."""
     ck = cell_key.clamp(0, tab.sentinel - 1)
     okq = ok & (cell_key >= 0) & (cell_key < tab.sentinel)
     return torch.where(okq, tab.cnt[ck].clamp(max=k),
-                       torch.zeros_like(ck)).sum(-1)
+                       torch.zeros_like(ck)).sum()
 
 
 def is_neighbor_comp(c0, n0, d0, cq, nq, dq, hunit, threshold,

@@ -81,19 +81,21 @@ def sized_nonzero(mask, size: int, fill: int):
 
 def append_patches(cloud: PatchCloud, new: PatchCloud, new_mask):
     """Append `new`'s masked rows into free slots of `cloud`, in index
-    order. Returns (cloud, dropped) - rows that did not fit are counted,
-    never silently truncated."""
+    order (reference patches.py:79-115): the k-th masked row goes to the
+    k-th free slot, from a [p] sized nonzero; rows past the free slots
+    go to a discard row. Returns (cloud, dropped), `dropped` the rows
+    that did not fit, a device scalar - never silently truncated."""
     p = cloud.capacity
-    free_idx = torch.nonzero(~cloud.alive).flatten()
-    src = torch.nonzero(new_mask).flatten()
-    take = min(src.numel(), free_idx.numel())
-    dropped = new_mask.sum() - take
-    src, dest = src[:take], free_idx[:take]
+    free_idx = sized_nonzero(~cloud.alive, p, p)
+    k = torch.cumsum(new_mask.to(torch.int64), 0) - 1
+    dest = torch.where(new_mask & (k < p), free_idx[k.clamp(0, p - 1)],
+                       torch.full_like(k, p))
+    dropped = (new_mask & (dest >= p)).sum()
 
-    def scat(dst, s):
-        out = dst.clone()
-        out[dest] = s[src]
-        return out
+    def scat(dst, src):
+        out = torch.cat([dst, dst[:1]])
+        out.index_copy_(0, dest, src)
+        return out[:p]
 
     out = PatchCloud(**{f.name: scat(getattr(cloud, f.name),
                                      getattr(new, f.name))

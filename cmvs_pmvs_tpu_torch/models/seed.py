@@ -16,6 +16,7 @@ from ..geom.cameras import CameraSet, epipolar_distance, \
 from ..image.pyramid import PyramidSet
 from ..image.sample import inside_bimages, mask_all
 from .config import EngineConfig, Thresholds
+from .graphs import allowed_sync, program
 from .patches import PatchCloud, append_patches, sized_nonzero
 from .process import process_candidates_chunked
 
@@ -143,10 +144,12 @@ def _run_rank(sorted_keys):
     return idx - start
 
 
+@program(scene=3)
 def seed_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
                   thr: Thresholds, feats, ref_views, ref_views_valid):
-    """Seed stage 1: candidate collection + per-cell pre-selection of the
-    seed_cand closest-ddiff candidates. Returns (candidates, keep)."""
+    """Seed stage 1 (reference seed.py:202-225): candidate collection +
+    per-cell pre-selection of the seed_cand closest-ddiff candidates.
+    Returns (candidates, keep, the kept count as a device scalar)."""
     cand, ddiff = collect_seed_candidates(cams, pyr, cfg, thr, feats,
                                           ref_views, ref_views_valid)
     sentinel = cfg.tn * cfg.gh * cfg.gw
@@ -158,7 +161,7 @@ def seed_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     skey = key[order]
     keep = torch.zeros_like(cand.valid)
     keep[order] = (_run_rank(skey) < cfg.seed_cand) & (skey < sentinel)
-    return cand, keep
+    return cand, keep, keep.sum()
 
 
 def _argmax_per_group(group, score, valid, num_groups: int):
@@ -234,10 +237,12 @@ def run_seed(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     `ensure_capacity(needed)` may grow the cloud before the commit so no
     accepted seed is dropped."""
     from .engine import _bucket15
-    cand, keep = seed_discover(cams, pyr, cfg, thr, feats, ref_views,
-                               ref_views_valid)
+    cand, keep, nkeep = seed_discover(cams, pyr, cfg, thr, feats, ref_views,
+                                      ref_views_valid, graphs=graphs)
     cap = min(keep.shape[0], cfg.tn * feats["x"].shape[1] * cfg.seed_cand)
-    budget = min(_bucket15(max(int(keep.sum()), 1), cap), cap)
+    with allowed_sync():
+        nkeep = int(nkeep)
+    budget = min(_bucket15(max(nkeep, 1), cap), cap)
     if ensure_capacity is not None:
         cloud = ensure_capacity(budget)
     return seed_commit(cams, pyr, cfg, thr, visdata, cand, keep, cloud,

@@ -7,12 +7,18 @@ expand_iters 1, max_waves 2, p_cap 30,000, the second of two runs kept;
 border 8, setEdge 0.4, expand_iters 3, max_waves 12, p_cap 200,000, one
 run) with these functions wrapped and timed, each call ending in a
 synchronize: seed.seed_discover / seed_commit, expand.expand_discover /
-expand_commit, filter.refresh_visibility / run_filters (and the engine
-module's own bindings of the last four). Because of those synchronizes
-the per-function seconds are not the run's: they show where a run's time
-goes, not what it costs. Then it times each filter sub-pass once warm on
-the final cloud: refresh_visibility, filter_outside, filter_exact,
-filter_neighbor, filter_small_groups.
+expand_commit, filter.refresh_visibility / run_filters_pre /
+run_filters_post / run_filters_tail / count_neighbor_pairs (and the
+engine module's own bindings of all but the seed's), as
+scripts/profile_e2e.py:66-76 wraps the JAX engine's programs. Because of
+those synchronizes the per-function seconds are not the run's: they show
+where a run's time goes, not what it costs. A call made while a CUDA
+graph is captured (a function inside a program, e.g. refresh_visibility
+inside run_filters_pre) is neither timed nor counted: the graph's
+replays do not call it. Then it times each filter sub-pass once warm on
+the final cloud's alive prefix: refresh_visibility, filter_outside,
+filter_exact, filter_neighbor (at the counted pair budget, as
+scripts/profile_e2e.py:125-128), filter_small_groups.
 
 `--profile-phase {seed,expand,filter} [...]` captures torch.profiler
 around the first instance of each of those engine spans only, and
@@ -74,12 +80,15 @@ SMALL = Setup(8, 192, 144, 300.0, 0, 0.0, 1, 2, 8, 30_000)
 FULL = Setup(12, 640, 480, 700.0, 8, 0.4, 3, 12, 8, 200_000)
 
 # (module, functions) timed: each call synchronized, its seconds summed
+FILTER_PROGRAMS = ("refresh_visibility", "run_filters_pre",
+                   "run_filters_post", "run_filters_tail",
+                   "count_neighbor_pairs")
 TIMED = (("models.seed", ("seed_discover", "seed_commit")),
          ("models.expand", ("expand_discover", "expand_commit")),
-         ("models.filter", ("refresh_visibility", "run_filters")),
+         ("models.filter", FILTER_PROGRAMS),
          # the engine binds these at import
          ("models.engine", ("expand_discover", "expand_commit",
-                            "refresh_visibility", "run_filters")))
+                            *FILTER_PROGRAMS)))
 # (module, functions) marked as profiler ranges only
 MARKED = (("models.process", ("process_candidates", "refine_patches",
                               "set_vimages")),
@@ -114,6 +123,8 @@ def wrapped(times: dict, dev: torch.device):
 
         @functools.wraps(fn)
         def wrapper(*a, **k):
+            if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                return fn(*a, **k)
             t0 = time.perf_counter()
             with torch.profiler.record_function(name):
                 out = fn(*a, **k)
@@ -141,9 +152,11 @@ def wrapped(times: dict, dev: torch.device):
 
 
 def filter_subpasses(eng, dev: torch.device) -> dict:
-    """Seconds of each filter sub-pass on the engine's final cloud, each
-    called once to warm up and then timed (synchronized)."""
+    """Seconds of each filter sub-pass on the engine's final cloud's
+    alive prefix, each called once to warm up and then timed
+    (synchronized); filter_neighbor at the counted pair budget."""
     from ..models import filter as F
+    from ..models.engine import _bucket15
     cams, pyr = eng.scene.cams, eng.scene.pyr
     cfg, thr = eng.cfg, eng.thr
     out = {}
@@ -157,12 +170,14 @@ def filter_subpasses(eng, dev: torch.device) -> dict:
         out[name] = time.perf_counter() - t0
         return res
 
+    cl = eng._slice(eng._cap_bucket(int(eng.cloud.count())))
     cloud, grid = timeit("refresh_visibility", F.refresh_visibility, cams,
-                         pyr, cfg, thr, eng.cloud, eng.grid)
+                         pyr, cfg, thr, cl, eng.grid)
     timeit("filter_outside", F.filter_outside, cams, cfg, thr, cloud, grid)
     timeit("filter_exact", F.filter_exact, cams, pyr, cfg, thr, cloud, grid)
+    need = int(F.count_neighbor_pairs(cfg, cloud))
     timeit("filter_neighbor", F.filter_neighbor, cams, cfg, thr, cloud,
-           grid)
+           grid, _bucket15(max(need, 1024), 1 << 28))
     timeit("filter_small_groups", F.filter_small_groups, cams, cfg, thr,
            cloud, grid)
     return out

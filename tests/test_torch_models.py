@@ -224,8 +224,9 @@ def test_process_candidates_accept_masks_agree(scene):
 
 def test_filter_neighbor_matches_jax_and_chunks_exactly(scene):
     """filterNeighbor verdicts vs JAX on a dense random cloud (>= 98%
-    agree: the quadric moments sum in another order), and the port's
-    row-chunked pass equals its single pass exactly."""
+    agree: the quadric moments sum in another order), each at the
+    counted pair budget, and the port's row-chunked pass equals its
+    single pass exactly."""
     from cmvs_pmvs_tpu.models import filter as JF
     from cmvs_pmvs_tpu_torch.models import filter as TF
     _, jc, _, tc, _ = scene
@@ -253,9 +254,14 @@ def test_filter_neighbor_matches_jax_and_chunks_exactly(scene):
     assert int(dropped) == 0
     tcfg = TCfg.EngineConfig(**kw)
     tthr = TCfg.Thresholds.initial(0.7, 0.17, 2.5)
-    single = TF.filter_neighbor(tc, tcfg, tthr, cloud_from_numpy(a), None)
-    chunked = TF.filter_neighbor(tc, tcfg, tthr, cloud_from_numpy(a), None,
-                                 max_pairs=need // 5)
+    tneed = int(TF.count_neighbor_pairs(tcfg, cloud_from_numpy(a)))
+    assert tneed == need
+    single, tdropped = TF.filter_neighbor(tc, tcfg, tthr,
+                                          cloud_from_numpy(a), None, need)
+    assert int(tdropped) == 0
+    chunked, cdropped = TF.filter_neighbor_chunked(
+        tc, tcfg, tthr, cloud_from_numpy(a), need, max_pairs=need // 5)
+    assert int(cdropped) == 0
     np.testing.assert_array_equal(chunked.alive.numpy(),
                                   single.alive.numpy())
     ja = _np(jout.alive)

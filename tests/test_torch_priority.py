@@ -66,7 +66,7 @@ def test_small_budget_commits_top_scores(seeded):
     alive = cloud.alive.numpy()
     n = int(alive.sum())
     disc = expand_discover(data.cams, data.pyr, eng.cfg, eng.thr, cloud,
-                           grid, cloud.alive.clone(), slack=0)
+                           grid, cloud.alive.clone(), slack=0, fbudget=n)
     sval = disc.sval.numpy()
     assert sval.sum() > CBUDGET, f"too few candidates ({sval.sum()})"
     dflag_before = cloud.dflag.numpy().copy()
@@ -106,8 +106,8 @@ def _to_jax(cls, x):
 
 def test_budget_commit_matches_jax(seeded):
     """The port's seeded cloud, grid and thresholds carried into the JAX
-    package: its discover (fbudget = the whole frontier, as the port
-    takes it) gives the same candidate rows, and its commit under the
+    package: its discover at the same fbudget (the whole frontier) gives
+    the same candidate rows, and its commit under the
     same cbudget takes the same parents and requeues the same rows."""
     data, eng, root = seeded
     cloud, grid = eng.cloud, eng.grid
@@ -122,7 +122,7 @@ def test_budget_commit_matches_jax(seeded):
     jthr = _to_jax(JThresholds, eng.thr)
 
     disc = expand_discover(data.cams, data.pyr, eng.cfg, eng.thr, cloud,
-                           grid, cloud.alive.clone(), slack=0)
+                           grid, cloud.alive.clone(), slack=0, fbudget=n)
     jdisc = JX.expand_discover(jdata.cams, jdata.pyr, jcfg, jthr, jcloud,
                                jgrid, jcloud.alive, slack=0, fbudget=n)
     parent, sval = disc.parent.numpy(), disc.sval.numpy()

@@ -181,12 +181,15 @@ def test_profile_e2e_counts_match_jax_phases(plane_runs):
     and the engines' spans agree in name and count."""
     p, jeng = plane_runs["profile"], plane_runs["jax"]
     calls = {k: n for k, (_, n) in p["functions"].items()}
-    assert set(calls) == set(COUNTED) | {"refresh_visibility",
-                                         "run_filters"}
+    assert set(calls) == set(COUNTED) | {
+        "refresh_visibility", "run_filters_pre", "count_neighbor_pairs",
+        "run_filters_post"}
     assert {k: calls[k] for k in COUNTED} == plane_runs["jax_counts"]
     jspans = {k: v["count"] for k, v in jeng.tracer.report().items()}
     assert p["phase_counts"] == jspans
-    assert calls["run_filters"] == jspans["filter"] == 1
+    for name in ("run_filters_pre", "count_neighbor_pairs",
+                 "run_filters_post"):
+        assert calls[name] == jspans["filter"] == 1, name
     # once after seeding, then before the four passes and after each
     assert calls["refresh_visibility"] == 1 + 5 * jspans["filter"]
     assert p["patches"] > 0 and all(s > 0 for s, _ in
@@ -210,12 +213,14 @@ def test_profile_e2e_profile_phase(plane_runs):
     r = plane_runs["profile"]
     assert list(r["profile"]) == ["filter"]
     s = r["profile"]["filter"]["spans"]
-    assert s["filter"]["instances"] == 1 and s["run_filters"]["instances"] \
-        == 1 and s["refresh_visibility"]["instances"] == 5
+    assert s["filter"]["instances"] == 1 \
+        and s["run_filters_pre"]["instances"] == 1 \
+        and s["run_filters_post"]["instances"] == 1 \
+        and s["refresh_visibility"]["instances"] == 5
     assert "expand" not in s and "seed" not in s
     assert r["profile"]["filter"]["device_ops"] == 0
     assert s["filter"]["busy_share"] == 0.0
-    assert "span run_filters" in profile_e2e.report(r)
+    assert "span run_filters_post" in profile_e2e.report(r)
 
 
 def test_profile_e2e_whole_run_is_profiled_alone(tmp_path):
