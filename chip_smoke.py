@@ -114,7 +114,8 @@ raises on failure (the script then exits non-zero):
    1 + 8 times a wave, as its counter says); profile_e2e on the full
    protocol with its seed, expand and filter spans profiled (device ops
    in each; busy shares logged); run_full, cold then warm (phase 5's
-   bars; its line also written to build/run_full.json); bench_fan2 (K3
+   bars; the warm run, on the cold run's graph cache, captures no
+   graph; its line also written to build/run_full.json); bench_fan2 (K3
    against K1, which must agree within 1e-4); ab_broyden's kernel A/B.
 15. The graphed path (models/graphs: one CUDA graph per refine bucket,
    the default on the card; phases 5, 8, 9 and 13 run `graphs=False`,
@@ -158,6 +159,17 @@ raises on failure (the script then exits non-zero):
    mode "error" (the engine's own reads, `PMVSEngine._read`, are the
    only ones allowed), and logs each run's host reads, filter seconds
    and graphs by program. (d) is phase 15(d).
+17. The bench driver (cmvs_pmvs_tpu_torch/scripts/bench.py, the port of
+   the root bench.py) as its main runs it, every kernel counter zeroed
+   before and read after, each line logged: the CPU divisor (built into
+   build/chip_smoke_bench/), the kernel stage (4 chained refine waves
+   of 8192 patches, 8 iterations, one CUDA graph: its replay bit-equal
+   to the op-by-op chain, K1 launched 36 times a replay and 36 times on
+   the capturing call, its eager warm-up), the e2e and full scenes
+   (cold, then steady on the cold run's graph cache: no graph captured;
+   the full stage's bars), the scaling curve at 1 and 2 CPU ranks
+   beside them; no stage error, the card on every line, K1 and K2
+   launched.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -1849,6 +1861,9 @@ def phase_drivers(dev) -> dict:
     log(f"drivers: run_full {json.dumps(rf)} ({time.time() - t0:.2f} s)")
     if not rf["bars"]["ok"]:
         raise AssertionError(f"run_full: bars missed: {rf['bars']}")
+    if rf["graphs"] is None or rf["graphs"]["captured"] != 0:
+        raise AssertionError(f"run_full: the warm run captured graphs: "
+                             f"{rf['graphs']}")
 
     t0 = time.time()
     bf = bench_fan2.bench(dev, log=log)
@@ -1867,6 +1882,63 @@ def phase_drivers(dev) -> dict:
     if any(launches[k] <= 0 for k in ("incc_fan", "windows", "incc_fan_v1")):
         raise AssertionError(f"drivers: K1, K2 or K3 did not launch: "
                              f"{launches}")
+    return launches
+
+
+def phase_bench(dev, card: str) -> dict:
+    """Phase 17: the bench driver (cmvs_pmvs_tpu_torch/scripts/bench.py)
+    through `bench.bench`, what its main runs, on the card, every kernel
+    counter zeroed just before and read just after: the chained waves'
+    replay bit-equal to the op-by-op chain, K1 launched nwave x (1 +
+    num_iters) times a replay and by the warm-up alone on the capturing
+    call, no graph captured in the scene stages' steady runs, the full
+    stage's bars, no stage error, the scaling curve at 1 and 2 CPU ranks;
+    each line names the card. Returns the launches; any failure
+    raises."""
+    import torch
+    from cmvs_pmvs_tpu_torch.scripts import bench
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    build_dir = os.path.join(ROOT, "build", "chip_smoke_bench")
+    shutil.rmtree(build_dir, ignore_errors=True)
+    lines = []
+
+    def emit(obj):
+        lines.append(obj)
+        log(f"bench: {json.dumps(obj)} ({time.time() - t0:.2f} s)")
+
+    r = bench.bench(dev, build_dir, scaling_ranks=(1, 2), emit=emit)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    used = {k: n for k, n in launches.items() if n}
+    log(f"bench: kernel launches {used}; phase 17 {time.time() - t0:.2f} s")
+    k, extra = r["kernel"], r.get("extra", {})
+    need = k["k1_expected"]
+    if not (k["replay_equals_eager"] and need == 4 * 9
+            and k["k1_launches_per_replay"] == need
+            and k["k1_launches_first_graph_call"] == need
+            and k["k1_launches_per_eager_chain"] == need):
+        raise AssertionError(f"bench: the chain's graph: {k}")
+    errors = {n: v for n, v in extra.items() if n.endswith("_error")}
+    if errors or len(lines) != 4:
+        raise AssertionError(f"bench: {len(lines)} lines, errors {errors}")
+    if any(ln["card"] != card for ln in lines):
+        raise AssertionError(f"bench: a line without the card's name and "
+                             f"power limit ({card})")
+    for tag in ("e2e", "full"):
+        g = extra[f"{tag}_graphs"]
+        if not extra[f"{tag}_steady"] or g is None or g["captured"] != 0:
+            raise AssertionError(f"bench: {tag}'s steady run: steady "
+                                 f"{extra[f'{tag}_steady']}, graphs {g}")
+    if not extra["full_bars"]["ok"]:
+        raise AssertionError(f"bench: full bars missed: "
+                             f"{extra['full_bars']}")
+    if list(extra["scaling"]["refines_per_sec_by_ranks"]) != ["1", "2"]:
+        raise AssertionError(f"bench: scaling {extra['scaling']}")
+    if any(launches[n] <= 0 for n in ("incc_fan", "windows")):
+        raise AssertionError(f"bench: K1 or K2 did not launch: {launches}")
     return launches
 
 
@@ -2497,6 +2569,7 @@ def main() -> int:
             f"{runs['graphs'][k]} (replays counted; phase 5 "
             f"{runs['default'][k]})")
     log(f"programs: phase 16(a) {t16:.2f} s")
+    runs["bench"] = phase_bench(dev, smi)
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",

@@ -293,6 +293,17 @@ class RefineGraphs:
                                 if not isinstance(g, CapturedProgram)}),
                 "programs": progs}
 
+    def stats_since(self, before: dict | None = None) -> dict:
+        """`stats()`, with what was added since the snapshot `before` (an
+        earlier `stats()`; None: since the cache was made): `captured`
+        graphs, their `run_capture_seconds` and `run_replays`."""
+        s = self.stats()
+        b = before or {"graphs": 0, "capture_seconds": 0.0, "replays": 0}
+        return {**s, "captured": s["graphs"] - b["graphs"],
+                "run_capture_seconds": (s["capture_seconds"]
+                                        - b["capture_seconds"]),
+                "run_replays": s["replays"] - b["replays"]}
+
     def call(self, name: str, fn, scene: tuple, inputs: dict,
              static: dict):
         """fn(*scene, **inputs, **static), replayed from the graph of its

@@ -31,6 +31,7 @@ import cmvs_pmvs_tpu.ops.refine as JR  # noqa: E402
 from cmvs_pmvs_tpu.geom import build_camera_set as jax_cameras  # noqa: E402
 from cmvs_pmvs_tpu.image import build_pyramids as jax_pyramids  # noqa
 
+import cmvs_pmvs_tpu_torch.models.engine as port_engine  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops import kernels, refine  # noqa: E402
 from cmvs_pmvs_tpu_torch.ops.fan import (  # noqa: E402
     TILE_PX, incc_fan_v1, window_positions)
@@ -232,8 +233,8 @@ def test_profile_e2e_whole_run_is_profiled_alone(tmp_path):
 TINY = profile_e2e.Setup(5, 96, 72, 150.0, 0, 0.0, 1, 1, 8, P_CAP)
 KEYS = {"card", "device", "protocol", "load_seconds", "patches",
         "cold_patches", "cold_seconds", "steady_seconds", "patches_per_sec",
-        "cold_phase_seconds", "phase_seconds", "launches", "median", "q90",
-        "bars"}
+        "cold_phase_seconds", "phase_seconds", "launches", "cold_graphs",
+        "graphs", "median", "q90", "bars"}
 
 
 def bench_files():
@@ -250,8 +251,8 @@ OUTSIDE = 7
 def run_full_main(tmp_path_factory):
     """run_full's main on a tiny scene, once, with K1's counter at OUTSIDE
     before the call: its return code, printed line, --out file, temp
-    directory, the BENCH files at the root before and after, and K1's
-    counter after."""
+    directory, the BENCH files at the root before and after, K1's
+    counter after, and the `graphs` argument of each engine it built."""
     tmp_path = tmp_path_factory.mktemp("run_full")
     tmp = tmp_path / "tmp"
     tmp.mkdir()
@@ -261,9 +262,17 @@ def run_full_main(tmp_path_factory):
     before = bench_files()
     out = tmp_path / "out" / "run_full.json"
     printed = io.StringIO()
+    made = []
+
+    class Recorded(port_engine.PMVSEngine):
+        def __init__(self, *a, graphs=None, **k):
+            made.append(graphs)
+            super().__init__(*a, graphs=graphs, **k)
+
     try:
         with pytest.MonkeyPatch.context() as mp, \
                 contextlib.redirect_stdout(printed):
+            mp.setattr(port_engine, "PMVSEngine", Recorded)
             mp.setattr(run_full, "FULL", TINY)
             mp.setattr("tempfile.tempdir", str(tmp))
             rc = run_full.main(["--device", "cpu", "--out", str(out)])
@@ -272,7 +281,7 @@ def run_full_main(tmp_path_factory):
         k1.launches = saved
     return dict(rc=rc, line=printed.getvalue().strip().splitlines()[-1],
                 out=out, tmp=tmp, bench_before=before,
-                bench_after=bench_files(), k1_after=after)
+                bench_after=bench_files(), k1_after=after, graphs=made)
 
 
 def test_run_full_writes_one_line_to_out_only(run_full_main):
@@ -294,6 +303,14 @@ def test_run_full_writes_one_line_to_out_only(run_full_main):
     assert os.listdir(tmp) == [] and os.listdir(out.parent) == \
         ["run_full.json"]
     assert m["bench_after"] == m["bench_before"]
+
+
+def test_run_full_runs_without_graphs_on_the_cpu(run_full_main):
+    """On the CPU the cold engine makes no graph cache, so the warm
+    engine, which takes the cold engine's, gets None too."""
+    assert run_full_main["graphs"] == [None, None]
+    r = json.loads(run_full_main["line"])
+    assert r["cold_graphs"] is None and r["graphs"] is None
 
 
 def test_run_full_leaves_the_launch_counters_alone(run_full_main):
