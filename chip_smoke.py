@@ -131,7 +131,7 @@ raises on failure (the script then exits non-zero):
    with the eager call's launches: depth 0 on phase 3's plane batch,
    depth 1 on (b)'s scene, cloud and grid. (c) Both paths' launch calls
    (the profiler's cudaLaunchKernel + cudaGraphLaunch) in seed, expand
-   and filter, their steady wall over three runs each (graphed with a
+   and filter, their steady wall over two runs each (graphed with a
    fresh cache and with one kept across runs), peak memory, and the
    graphs captured with their capture seconds. (d) At expand_iters=1,
    USE_FAN_V2 = False (K3), USE_FAN = False (K4) and the gamma pyramid
@@ -170,6 +170,38 @@ raises on failure (the script then exits non-zero):
    the full stage's bars), the scaling curve at 1 and 2 CPU ranks
    beside them; no stage error, the card on every line, K1 and K2
    launched.
+18. Graphs that outlive a scene (models/graphs: keys by shape as the JAX
+   package keys its jits, one cache per device for the process, each
+   signature's scene resident and copied in once per switch), every
+   kernel counter zeroed before and read after. (a) Two runs of the
+   seed-43 scene (`make_occluded_scene(..., seed=43)`, phase 5's shapes)
+   each on a fresh cache of its own, then `reconstruct` on phase 5's
+   scene and on the seed-43 scene on the process's cache: the second
+   captures exactly the keys the first never used (buckets only its
+   waves reach; a new bucket compiles in JAX too) and replays the rest
+   (at least 80% of its keys, at most a quarter of the first's
+   captures, each new key an old one but for bucket fields, each scene
+   value copied in once), meets phase 5's bars, and its count lies
+   within the fresh runs' spread (outside it, within 0.1% of it, as
+   15(b) holds the graphed run to phase 5); one more run on the kept
+   cache captures nothing; the seconds of each. (b) Every chunk and program key of that kept
+   run, replayed from the captures made on phase 5's scene, against a
+   fresh cache's capture on the seed-43 scene: equal bits, run_filters_post
+   alone held to two eager calls' spread as phase 16 holds it (its
+   filterNeighbor verdicts were the noisy ones until their per-row sums
+   became sequential, `models/filter._row_sums`). (c) pmvs3_all
+   (cli/pmvs_all.main) on the protocol tree with two clusters of 6
+   images (ske.dat written by hand, vis.dat every pair, genOption's
+   option files): the second cluster captures exactly the keys the first
+   never used and passes (a)'s reuse checks against it, the merged
+   cloud meets phase 11b's bars; seconds per cluster. (d) A 10-camera
+   scene captures anew; the pool's reserved bytes, the graphs
+   held and any least-recently-used drop logged. Earlier phases run on
+   the process's cache where they do not measure a fresh one (11b, 14's
+   drivers, 15(b), 15(d)); 15(c), run_full's cold run and the bench's
+   cold runs take private caches, and the cache is cleared before phase
+   12's ranks share the card and before 15(c) and 17 measure memory and
+   time.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -197,6 +229,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import shutil
 import sys
@@ -2122,10 +2155,11 @@ def phase_graph_costs(dev, scene) -> dict:
     from cmvs_pmvs_tpu_torch.utils.options import PMVSOptions
     _, root = write_scene("chip_smoke_graph_costs", scene)
     out = {"calls": {}, "steady": {}}
-    for label, graphs in (("eager", False), ("graphs", True)):
+    for label, graphs in (("eager", lambda: False),
+                          ("graphs", lambda: RefineGraphs(dev))):
         t0 = time.time()
         pe = profile_e2e.profile(root, profile_e2e.FULL, dev,
-                                 profile_phases=("run",), graphs=graphs)
+                                 profile_phases=("run",), graphs=graphs())
         spans = pe["profile"]["run"]["spans"]
         calls = {ph: (spans[ph]["launch_calls"], spans[ph]["graph_launches"])
                  for ph in ("seed", "expand", "filter")}
@@ -2174,7 +2208,8 @@ def phase_graph_costs(dev, scene) -> dict:
         f"patches, host reads {eng.host_reads}, graphs {kept.stats()} "
         f"({time.time() - t0:.2f} s)")
     del eng, prof, whole
-    for label, graphs in (("eager", lambda: False), ("graphs", lambda: True),
+    for label, graphs in (("eager", lambda: False),
+                          ("graphs", lambda: RefineGraphs(dev)),
                           ("graphs_kept", lambda: kept)):
         runs = []
         for _ in range(3):
@@ -2254,23 +2289,57 @@ def named_leaves(obj, name: str = "") -> dict:
     return out
 
 
+def bits(t):
+    """`t`, a float tensor seen as the integers of its bits: two results
+    compare bit for bit, a NaN equal to the same NaN."""
+    import torch
+    if not t.is_floating_point():
+        return t
+    return t.view({8: torch.int64, 4: torch.int32,
+                   2: torch.int16}[t.element_size()])
+
+
 def differences(want, got) -> dict:
-    """Fields of `got` that differ from `want`: name -> (max |diff|,
-    differing elements, elements)."""
+    """Fields of `got` whose bits differ from `want`'s: name -> (max
+    |diff|, differing elements, elements)."""
     import torch
     a, b = named_leaves(want), named_leaves(got)
     out = {}
     for k, x in a.items():
         y = b[k]
-        if x.shape != y.shape:
+        if x.shape != y.shape or x.dtype != y.dtype:
             out[k] = (float("inf"), x.numel(), x.numel())
-        elif not torch.equal(x, y):
-            ne = x != y
+        elif not torch.equal(bits(x), bits(y)):
+            ne = bits(x) != bits(y)
             d = torch.where(ne, (x.double() - y.double()).abs().nan_to_num(
                 nan=float("inf")), torch.zeros((), dtype=torch.float64,
                                               device=x.device))
             out[k] = (float(d.max()), int(ne.sum()), x.numel())
     return out
+
+
+def beyond_eager_spread(want, differ: dict, noisy: dict) -> list:
+    """The fields of `differ` (`differences` of a program's result from
+    `want`) that are too far off: a float field past 1e-6 and any integer
+    or bool field, unless two eager calls differ too (`noisy`: the
+    program is not deterministic on the card, atomic float sums feed its
+    verdicts); then every field past 1e-3 of its elements, a count past
+    twice the eager calls' spread of the counts or 1e-3 of its value."""
+    leaves = named_leaves(want)
+    spread = max([nd for nd, _, n in noisy.values() if n == 1],
+                 default=0.0)
+    bad = []
+    for k, (dmax, m, total) in differ.items():
+        if not noisy:
+            off = dmax > 1e-6 or not leaves[k].is_floating_point()
+        elif total > 1:
+            off = m > total / 1000
+        else:
+            big = float(leaves[k].double().abs())
+            off = dmax > max(2 * spread, big / 1000)
+        if off:
+            bad.append(k)
+    return bad
 
 
 def phase_program_replays(dev, eng) -> dict:
@@ -2327,24 +2396,10 @@ def phase_program_replays(dev, eng) -> dict:
         if replayed != eager:
             raise AssertionError(f"program_replays[{label}]: a replay "
                                  f"counted {replayed}, eager {eager}")
-        leaves = named_leaves(want)
-        # where two eager calls differ, the program is not deterministic
-        # on the card (atomic float sums feed its verdicts): every field
-        # is held to 1e-3 of its elements, a count to twice the eager
-        # calls' spread of the counts or 1e-3 of its value
-        spread = max([nd for nd, _, n in noisy.values() if n == 1],
-                     default=0.0)
-        for k, (dmax, m, total) in differ.items():
-            if not noisy:
-                bad = dmax > 1e-6 or not leaves[k].is_floating_point()
-            elif total > 1:
-                bad = m > total / 1000
-            else:
-                big = float(leaves[k].double().abs())
-                bad = dmax > max(2 * spread, big / 1000)
-            if bad:
-                raise AssertionError(f"program_replays[{label}]: {k} "
-                                     f"differs: {differ[k]}")
+        bad = beyond_eager_spread(want, differ, noisy)
+        if bad:
+            raise AssertionError(f"program_replays[{label}]: {bad[0]} "
+                                 f"differs: {differ[bad[0]]}")
         return want
 
     slack = 1
@@ -2471,6 +2526,421 @@ def phase_graph_variants(dev, scene) -> dict:
     return runs
 
 
+def protocol_result(sc, eng, root: str, name: str = "option.txt") -> dict:
+    """A reconstruct run's count, accuracy against the scene `sc` and
+    written files (read back)."""
+    from cmvs_pmvs_tpu_torch.io.patches import read_patch_file, read_pset
+    from cmvs_pmvs_tpu_torch.io.ply import read_ply_xyz
+    alive = eng.cloud.alive.cpu().numpy()
+    n = int(alive.sum())
+    coord = eng.cloud.coord.cpu().numpy()[alive][:, :3]
+    d = sc.surface_distance(coord) / eng.cloud.dscale.cpu().numpy()[alive]
+    base = os.path.join(root, "models", name)
+    counts = {"patch": len(read_patch_file(base + ".patch")),
+              "ply": len(read_ply_xyz(base + ".ply")),
+              "pset": len(read_pset(base + ".pset")[0])}
+    return {"n": n, "median": float(np.median(d)) if n else math.inf,
+            "q90": float(np.quantile(d, 0.9)) if n else math.inf,
+            "counts": counts, "on_card": bool(eng.cloud.coord.is_cuda)}
+
+
+def protocol_bars(r: dict, min_patches: int = 80_000) -> bool:
+    """Phase 5's bars on a `protocol_result`."""
+    return (r["n"] >= min_patches and r["median"] < 0.4 and r["q90"] < 1.5
+            and r["on_card"] and all(c == r["n"]
+                                     for c in r["counts"].values()))
+
+
+def key_label(key: tuple) -> str:
+    """A graph key (models/graphs) in a few words: a program's name and
+    static arguments, a chunk's rows, depth and capacity."""
+    if isinstance(key[0], str):
+        return f"{key[0]} {dict(key[4])}"
+    return f"chunk rows {key[0]} depth {key[1]} cap {key[3]}"
+
+
+def key_family(key: tuple) -> tuple:
+    """A graph key (models/graphs) without its bucket fields: a chunk's
+    depth, refine_iters, grid shape, config, scene signature and
+    switches (not its rows or cloud capacity); a program's name, scene
+    signature, input structure and switches (not its input shapes or
+    static sizes)."""
+    if isinstance(key[0], str):
+        return (key[0], key[1], key[2], key[5])
+    return ("chunk",) + key[1:3] + key[4:]
+
+
+def reuse_failures(label: str, used: set, earlier: set, captured: int,
+                   first: int) -> list:
+    """Phase 18's checks that a later run replayed what earlier runs
+    captured, given the keys it used and those they used: at least 80%
+    of its keys are earlier ones; it captured at most a quarter of what
+    the first run captured; each key it added differs from an earlier
+    key only in bucket fields (`key_family`). Logs the keys replayed and
+    added; returns the checks failed."""
+    replayed, new = used & earlier, used - earlier
+    families = {key_family(k) for k in earlier}
+    strays = sorted(key_label(k) for k in new
+                    if key_family(k) not in families)
+    log(f"scenes{label}: {len(replayed)} of its {len(used)} keys replayed "
+        f"from earlier captures: {sorted(key_label(k) for k in replayed)}; "
+        f"{captured} captured, the first run {first}; keys added "
+        f"{sorted(key_label(k) for k in new) or 'none'}")
+    failed = []
+    if len(replayed) < 0.8 * len(used):
+        failed.append(f"{label}: {len(replayed)} of {len(used)} keys "
+                      f"replayed from earlier captures, under 80%")
+    if captured > first / 4:
+        failed.append(f"{label}: captured {captured} graphs, more than a "
+                      f"quarter of the first run's {first}")
+    if strays:
+        failed.append(f"{label}: keys that no earlier key matches but for "
+                      f"bucket fields: {strays}")
+    return failed
+
+
+def record_keys(g, seen: dict):
+    """Make the graph cache `g` keep, on the first call of each of its
+    keys, that call's arguments (tensor inputs cloned; the scene as it
+    is) in `seen` (key -> call); the cache works as before."""
+    from cmvs_pmvs_tpu_torch.models import graphs as G
+    process, call = g.process, g.call
+
+    def copied(obj):
+        leaves = []
+        tree = G.flatten(obj, leaves)
+        return G.unflatten(tree, iter([t.clone() for t in leaves]))
+
+    def rec_process(cams, pyr, cfg, thr, visdata, coord, normal, vmask, ref,
+                    depth, grid=None, cloud=None, active=None,
+                    refine_iters=12):
+        deep = depth >= 1 and grid is not None and cloud is not None
+        key = G.graph_key(cams, pyr, cfg, visdata, coord.shape[0], depth,
+                          refine_iters, cloud.capacity if deep else None,
+                          tuple(grid.depth_idx.shape) if deep else None)
+        kw = dict(depth=depth, grid=grid, cloud=cloud, active=active,
+                  refine_iters=refine_iters)
+        if coord.shape[0] and key not in seen:
+            seen[key] = ("process", (cams, pyr, cfg) + copied(
+                (thr,)) + (visdata,) + copied((coord, normal, vmask, ref)),
+                copied(kw))
+        return process(cams, pyr, cfg, thr, visdata, coord, normal, vmask,
+                       ref, **kw)
+
+    def rec_call(name, fn, scene, inputs, static):
+        leaves = []
+        tree = G.flatten(inputs, leaves)
+        key = G.program_key(name, G.scene_key(scene), tree, leaves, static)
+        if key not in seen:
+            seen[key] = ("call", (name, fn, scene, copied(inputs), static),
+                         {})
+        return call(name, fn, scene, inputs, static)
+
+    g.process, g.call = rec_process, rec_call
+
+
+def phase_scenes(dev, scene) -> dict:
+    """Phase 18: the CUDA graphs outlive a scene (models/graphs: keys by
+    shape, one cache per device for the process, resident scene copies),
+    every kernel counter zeroed before and read after. (a) Two fresh-cache
+    runs of the seed-43 scene (private caches), then `reconstruct` on
+    phase 5's scene and on the seed-43 scene on the process's cache: the
+    second captures only the keys the first did not use (the buckets its
+    waves alone reach) and replays every other (`reuse_failures`: at
+    least 80% of its keys replayed, at most a quarter of the first's
+    captures, each added key one of the first's but for bucket fields),
+    copies each resident scene value in once and makes none, meets phase
+    5's bars, and its count lies within the fresh runs' spread (or,
+    outside it, within 0.1% of it, as 15(b) holds the graphed run to
+    phase 5); then a run on the cache kept captures nothing; seconds
+    logged side by side. (b) Every chunk and program key of that kept
+    run replayed from the process's cache (at least 80% of them captured
+    on phase 5's scene) against a fresh cache's capture on the seed-43
+    scene: equal bits (filter_neighbor_rows too: its per-row sums run in
+    a fixed order), run_filters_post alone, where two eager calls differ
+    too, within their spread as phase 16 holds it. (c) pmvs3_all
+    (cli/pmvs_all.main) on the protocol tree with two clusters of 6
+    images (ske.dat by hand, vis.dat every pair, genOption's option
+    files): the second cluster captures only the keys the first did not
+    use and passes `reuse_failures` against it, the merged cloud meets
+    phase 11b's bars, seconds per cluster logged. (d) A 10-camera scene
+    captures anew; the pool's reserved bytes, the graphs held and any
+    drop logged. Returns the launches; raises after all four
+    steps if any check failed."""
+    import contextlib
+    import io
+    import logging
+    import re
+    import torch
+    from cmvs_pmvs_tpu_torch.cli import pmvs_all
+    from cmvs_pmvs_tpu_torch.io.patches import read_patch_file
+    from cmvs_pmvs_tpu_torch.io.ske import write_ske
+    from cmvs_pmvs_tpu_torch.io.visdata import write_vis
+    from cmvs_pmvs_tpu_torch.models import graphs as G
+    from cmvs_pmvs_tpu_torch.models.engine import reconstruct
+    from cmvs_pmvs_tpu_torch.models.gen_option import gen_option
+    from cmvs_pmvs_tpu_torch.utils.synthetic import make_occluded_scene
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t00 = time.time()
+    failed = []
+    cache = G.shared(dev)
+    cache.clear()
+    logger = logging.getLogger(G.__name__)
+    events = io.StringIO()
+    handler = logging.StreamHandler(events)
+    logger.addHandler(handler)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    scene_b = make_occluded_scene(num_cameras=12, width=640, height=480,
+                                  focal=700.0, seed=43)
+    _, root_a = write_scene("chip_smoke_scenes_a", scene)
+    _, root_b = write_scene("chip_smoke_scenes_b", scene_b)
+
+    def run(label, root, sc, graphs=None, min_patches=80_000):
+        before = cache.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = reconstruct(root, "option.txt", p_cap=200_000, device=dev,
+                          log=lambda m: None, graphs=graphs, **PROTOCOL_RUN)
+        torch.cuda.synchronize()
+        mine = eng.graphs is cache
+        r = {"seconds": time.perf_counter() - t0,
+             **protocol_result(sc, eng, root),
+             "graphs": eng.graphs.stats_since(before if mine else None)}
+        loads = r["graphs"]["scene_loads"] - (before["scene_loads"] if mine
+                                              else 0)
+        log(f"scenes[{label}]: {r['n']} patches, median {r['median']:.4f} "
+            f"q90 {r['q90']:.4f}, {r['seconds']:.3f} s, captured "
+            f"{r['graphs']['captured']} graphs "
+            f"({r['graphs']['run_capture_seconds']:.3f} s), "
+            f"{r['graphs']['run_replays']} replays, {loads} scene values "
+            f"copied in, outputs {r['counts']}")
+        if not protocol_bars(r, min_patches):
+            failed.append(f"{label}: phase 5's bars missed: {r}")
+        return r
+
+    try:
+        # (a)
+        fresh = [run(f"fresh cache, seed 43 #{i}", root_b, scene_b,
+                     G.RefineGraphs(dev)) for i in (1, 2)]
+        torch.cuda.empty_cache()
+        tick = cache.tick
+        first = run("process cache, phase 5's scene", root_a, scene)
+        keys_a = cache.used_since(tick)
+        tick, n_res = cache.tick, len(cache.residents.by_sig)
+        second = run("process cache, seed 43", root_b, scene_b)
+        used_b = cache.used_since(tick)
+        new_b = used_b - keys_a
+        seen: dict = {}
+        record_keys(cache, seen)
+        try:
+            kept = run("process cache kept, seed 43 again", root_b,
+                       scene_b)
+        finally:
+            del cache.process, cache.call
+        lo, hi = min(r["n"] for r in fresh), max(r["n"] for r in fresh)
+        near = min(abs(second["n"] - lo), abs(second["n"] - hi))
+        log(f"scenes(a): seed 43 on the process cache after phase 5's "
+            f"scene: {second['n']} patches in {second['seconds']:.3f} s, "
+            f"{second['graphs']['captured']} captures; fresh caches "
+            f"{[r['n'] for r in fresh]} patches in "
+            f"{[round(r['seconds'], 3) for r in fresh]} s; kept "
+            f"{kept['n']} in {kept['seconds']:.3f} s; phase 5's scene "
+            f"first {first['n']} in {first['seconds']:.3f} s "
+            f"({first['graphs']['captured']} captures)")
+        log(f"scenes(a): keys of the seed-43 run that phase 5's scene's run "
+            f"did not use: {sorted(key_label(k) for k in new_b) or 'none'}")
+        failed += reuse_failures("(a) seed 43", used_b, keys_a,
+                                 second["graphs"]["captured"],
+                                 first["graphs"]["captured"])
+        if second["graphs"]["captured"] != len(new_b):
+            failed.append(f"(a): the seed-43 run captured "
+                          f"{second['graphs']['captured']} graphs, "
+                          f"{len(new_b)} of them new keys")
+        loads_b = (second["graphs"]["scene_loads"]
+                   - first["graphs"]["scene_loads"])
+        if len(cache.residents.by_sig) != n_res or loads_b > n_res:
+            failed.append(f"(a): the seed-43 run made "
+                          f"{len(cache.residents.by_sig) - n_res} resident "
+                          f"values and {loads_b} copies into the {n_res} "
+                          f"phase 5's scene left: one copy each expected")
+        if kept["graphs"]["captured"]:
+            failed.append(f"(a): the kept run captured "
+                          f"{kept['graphs']['captured']} graphs")
+        if not lo <= second["n"] <= hi and near > hi / 1000:
+            failed.append(f"(a): {second['n']} patches, fresh caches "
+                          f"{lo}-{hi}: more than 0.1% outside")
+        # (b)
+        t0 = time.time()
+        fb = G.RefineGraphs(dev)
+        out = []
+        for key, (kind, args, kw) in seen.items():
+            if kind == "process":
+                label = f"chunk rows {key[0]} depth {key[1]} cap {key[3]}"
+                got_a = cache.process(*args, **kw)
+                fb.process(*args, **kw)
+                got_b = fb.process(*args, **kw)
+            else:
+                name, fn, sc_, inputs, static = args
+                label = f"{name} {static}"
+                got_a = cache.call(name, fn, sc_, inputs, static)
+                fb.call(name, fn, sc_, inputs, static)
+                got_b = fb.call(name, fn, sc_, inputs, static)
+            differ = differences(got_b, got_a)
+            noisy = {}
+            if differ and kind != "process" and name == "run_filters_post":
+                # two eager calls on the same inputs: where they differ too,
+                # the program is not deterministic on the card
+                e1, e2 = (fn(*sc_, **inputs, **static) for _ in range(2))
+                noisy = differences(e1, e2)
+                del e1, e2
+            bad = beyond_eager_spread(got_b, differ, noisy)
+            out.append((label, not differ, bool(noisy)))
+            if differ:
+                log(f"scenes(b)[{label}]: replay of the capture on phase "
+                    f"5's scene differs from the capture on seed 43 in "
+                    f"{differ} (two eager calls: {noisy})")
+            if bad:
+                failed.append(f"(b) {label}: {bad} differ: {differ}")
+        torch.cuda.synchronize()
+        on_a = len(set(seen) & keys_a)
+        if on_a < 0.8 * len(seen):
+            failed.append(f"(b): {on_a} of {len(seen)} keys captured on "
+                          f"phase 5's scene, under 80%")
+        log(f"scenes(b): {len(seen)} keys of the seed-43 run ({on_a} "
+            f"captured on phase 5's scene, the rest on seed 43 in (a)) "
+            f"replayed from the process cache against captures on seed 43: "
+            f"{sum(e for _, e, _ in out)} bit-equal; the rest, each with "
+            f"whether two eager calls differ too: "
+            f"{[(k, n) for k, e, n in out if not e]}; fresh "
+            f"cache {fb.stats()['graphs']} captures "
+            f"({time.time() - t0:.2f} s)")
+        del fb, seen
+        torch.cuda.empty_cache()
+        # (c)
+        t0 = time.time()
+        _, root_c = write_scene("chip_smoke_scenes_c", scene)
+        write_vis(os.path.join(root_c, "vis.dat"),
+                  [[j for j in range(12) if j != i] for i in range(12)])
+        write_ske(os.path.join(root_c, "ske.dat"), 12,
+                  [list(range(6)), list(range(6, 12))], [[], []])
+        names = gen_option(root_c, level=0, csize=2, threshold=0.7, wsize=7,
+                           min_image_num=3)
+
+        class Marked(io.StringIO):
+            """The CLI's output; at each cluster's start, the keys the
+            cluster before it used (`used`)."""
+
+            def __init__(self):
+                super().__init__()
+                self.used, self.tick = [], None
+
+            def close_cluster(self):
+                if self.tick is not None:
+                    self.used.append(cache.used_since(self.tick))
+
+            def write(self, text):
+                if re.search(r"\] reconstructing", text):
+                    self.close_cluster()
+                    self.tick = cache.tick
+                return super().write(text)
+
+        text = Marked()
+        clusters_handler = logging.StreamHandler(text)
+        logger.addHandler(clusters_handler)
+        try:
+            with contextlib.redirect_stdout(text):
+                rc = pmvs_all.main([root_c])
+        finally:
+            logger.removeHandler(clusters_handler)
+        text.close_cluster()
+        per = {}
+        name = None
+        for line in text.getvalue().splitlines():
+            m = re.match(r"\[(option-\d{4})\] reconstructing", line)
+            if m:
+                name = m.group(1)
+                per[name] = []
+            elif line.startswith("captured ") and name:
+                per[name].append(line.split(" in ")[0][9:])
+        done = {}
+        for n_ in names:
+            with open(os.path.join(root_c, "models", n_ + ".done")) as f:
+                p, sec = f.read().split()
+            done[n_] = (int(p), float(sec))
+        recs = read_patch_file(os.path.join(root_c, "models", "all.patch"))
+        total = sum(p for p, _ in done.values())
+        coord = np.array([r.coord[:3] for r in recs])
+        d = scene.surface_distance(coord) / np.array([r.dscale
+                                                      for r in recs])
+        med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
+        log(f"scenes(c): pmvs3_all over {names} (6 images each): rc {rc}, "
+            f"captures {[len(per.get(n_, [])) for n_ in names]}, patches "
+            f"and seconds per cluster {done}, merged {len(recs)} patches, "
+            f"median {med:.4f} q90 {q90:.4f} ({time.time() - t0:.2f} s)")
+        for i, n_ in enumerate(names[1:], 1):
+            used = text.used[i] if len(text.used) > i else set()
+            earlier = set().union(*text.used[:i])
+            fresh_keys = used - earlier
+            log(f"scenes(c): {n_} captured {per.get(n_)}")
+            failed += reuse_failures(f"(c) {n_}", used, earlier,
+                                     len(per.get(n_, [])),
+                                     len(per.get(names[0], [])))
+            if len(per.get(n_, [])) != len(fresh_keys):
+                failed.append(f"(c): {n_} captured {len(per.get(n_, []))} "
+                              f"graphs, {len(fresh_keys)} of them new keys")
+        if rc != 0 or len(per) != 2 or not per[names[0]]:
+            failed.append(f"(c): captures by cluster "
+                          f"{ {k: len(v) for k, v in per.items()} }, rc {rc}")
+        if len(recs) != total or total == 0 or not (med < 0.4
+                                                    and q90 < 1.5):
+            failed.append(f"(c): merged {len(recs)} of {total}, median "
+                          f"{med}, q90 {q90}")
+        shutil.rmtree(root_c, ignore_errors=True)
+        # (d)
+        scene_d = make_occluded_scene(num_cameras=10, width=640, height=480,
+                                      focal=700.0, seed=44)
+        _, root_d = write_scene("chip_smoke_scenes_d", scene_d)
+        with open(os.path.join(root_d, "option.txt")) as f:
+            opt_text = f.read()
+        with open(os.path.join(root_d, "option.txt"), "w") as f:
+            f.write(opt_text.replace("timages -1 0 12", "timages -1 0 10"))
+        other = run("process cache, 10 cameras", root_d, scene_d,
+                    min_patches=0)
+        free, total_b = torch.cuda.mem_get_info(dev)
+        drops = [ln for ln in events.getvalue().splitlines()
+                 if ln.startswith("dropped ")]
+        log(f"scenes(d): 10 cameras captured "
+            f"{other['graphs']['captured']} graphs; the process cache "
+            f"holds {cache.stats()['held']} graphs, dropped "
+            f"{cache.stats()['dropped']}, pool reserved "
+            f"{cache.pool_bytes()} bytes, allocator reserved "
+            f"{torch.cuda.memory_reserved(dev)} bytes, {free} of "
+            f"{total_b} bytes free; drops logged: {drops or 'none'}")
+        if other["graphs"]["captured"] <= 0:
+            failed.append("(d): a scene of another shape captured nothing")
+        shutil.rmtree(root_d, ignore_errors=True)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+        for root in (root_a, root_b):
+            shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    captures = sum(1 for ln in events.getvalue().splitlines()
+                   if ln.startswith("captured "))
+    log(f"scenes: kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {captures} "
+        f"captures logged; phase 18 {time.time() - t00:.2f} s")
+    if any(launches[k] <= 0 for k in ("incc_fan", "windows")):
+        failed.append(f"K1 or K2 did not launch: {launches}")
+    if failed:
+        raise AssertionError("scenes: " + "; ".join(failed))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -2484,6 +2954,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import torch
+    t_script = time.time()
     smi = phase_device()
     from cmvs_pmvs_tpu_torch.ops import kernels
     t0 = time.time()
@@ -2537,6 +3008,10 @@ def main() -> int:
     phase_cmvs_scale()
     pipeline = phase_pipeline(dev)
     runs["pipeline"] = pipeline["launches"]
+    # the ranks share the card: the process's graph cache (11b's clusters)
+    # gives its memory back first
+    from cmvs_pmvs_tpu_torch.models.graphs import shared
+    shared(dev).clear()
     runs.update(phase_multi_rank(dev, n_default, runs["default"], pipeline))
     shutil.rmtree(pipeline["root"], ignore_errors=True)
     t0 = time.time()
@@ -2560,6 +3035,9 @@ def main() -> int:
     phase_program_replays(dev, eng)
     t16 = time.time() - t16
     del eng
+    # 15(c) measures fresh caches' memory: the process's cache (filled by
+    # phases 14 and 15(b)) gives its memory back first, as before 17
+    shared(dev).clear()
     phase_graph_costs(dev, scene)
     runs.update(phase_graph_variants(dev, scene))
     log(f"graphs: phase 15 {time.time() - t0 - t16:.2f} s")
@@ -2569,7 +3047,10 @@ def main() -> int:
             f"{runs['graphs'][k]} (replays counted; phase 5 "
             f"{runs['default'][k]})")
     log(f"programs: phase 16(a) {t16:.2f} s")
+    shared(dev).clear()
     runs["bench"] = phase_bench(dev, smi)
+    runs["scenes"] = phase_scenes(dev, scene)
+    log(f"script: {time.time() - t_script:.2f} s in all")
 
     def row(name, source, replaces, run, res):
         return {"name": name, "route": "cuda",

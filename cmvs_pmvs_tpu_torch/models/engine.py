@@ -15,11 +15,13 @@ are padded with inactive rows to `_bucket15` sizes, frontiers to
 `_bucket15` budgets and the neighbour filter's pairs to a `_bucket15`
 pair budget. On CUDA each refine chunk and each program of a wave and of
 the filter stage replays a CUDA graph captured once per static key
-(models/graphs; `graphs=False` runs the same code op by op). The host
-reads the card where the JAX engine does: once per iteration, twice per
-wave (the candidate count, the commit stats), twice per filter round
-(the neighbour pair count, the stats), and once per chunk of a chunked
-neighbour pass (`_read`).
+(models/graphs: one cache per device for the process, so an engine on
+a scene of an earlier one's shapes replays the keys it captured, as the
+JAX package's jits are compiled once; `graphs=False` runs the same code
+op by op). The host reads the card where the JAX engine does: once per
+iteration, twice per wave (the candidate count, the commit stats), twice
+per filter round (the neighbour pair count, the stats), and once per
+chunk of a chunked neighbour pass (`_read`).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from .expand import expand_commit, expand_discover
 from .filter import (MAX_PAIRS_PER_PASS, count_neighbor_pairs,
                      filter_neighbor_chunked, refresh_visibility,
                      run_filters_post, run_filters_pre, run_filters_tail)
-from .graphs import RefineGraphs, allowed_sync
+from .graphs import RefineGraphs, allowed_sync, resolve as resolve_graphs
 from .grid import GridState, empty_grid
 from .patches import PatchCloud, compact_cloud, empty_cloud
 from .seed import run_seed
@@ -155,16 +157,15 @@ class PMVSEngine:
         its slice of every candidate batch and holds the whole state,
         re-synchronised from rank 0 after every phase. `graphs`: run the
         refine batches' chunks and the programs of the waves and the
-        filter stage as CUDA graphs (models/graphs); None is True on a
+        filter stage as CUDA graphs (models/graphs); True takes the
+        process's cache for the device (graphs.shared), which replays
+        what any engine of the process captured on a scene of the same
+        shapes, as the JAX package's jits are reused; None is True on a
         CUDA device and False on the CPU, where there are none; a
-        RefineGraphs shares its captures with other engines on the same
-        loaded scene."""
+        RefineGraphs is a cache of the caller's own (a private one
+        measures a fresh cache)."""
         self.device = resolve_device(device)
-        if graphs is None:
-            graphs = self.device.type == "cuda"
-        if graphs is True:
-            graphs = RefineGraphs(self.device)
-        self.graphs = graphs or None
+        self.graphs = resolve_graphs(graphs, self.device)
         self.mesh = mesh
         if mesh is not None:
             from ..parallel.engine_shard import round_capacity
@@ -559,12 +560,17 @@ class PMVSEngine:
 
 def reconstruct(prefix: str, option_name: str, p_cap: int = 200_000,
                 log=print, profile_dir: str | None = None, device="cuda",
-                mesh=None, graphs: bool | None = None,
+                mesh=None, graphs: bool | RefineGraphs | None = None,
                 **run_kwargs) -> PMVSEngine:
     """pmvs3 entry: load, run, write models/<option> (pmvs.cpp:7-63).
     With an engine `mesh` every rank of the group calls it; the ranks
     end with rank 0's cloud, and rank 0 alone writes. `graphs` as in
-    PMVSEngine (False: the refine batches op by op on the card)."""
+    PMVSEngine (None: the process's cache on the card, so a later call
+    on a scene of the same shapes replays every key an earlier call
+    captured; False: op by op). That cache keeps its graphs' memory pool
+    and resident scenes after the call returns, dropping some only to
+    make room for a capture (models/graphs); a caller that needs the
+    memory back calls `models.graphs.shared(device).clear()`."""
     dev = resolve_device(device)
     opt = PMVSOptions.parse(os.path.join(prefix, option_name))
     scene = load_scene(prefix, opt, device=dev)

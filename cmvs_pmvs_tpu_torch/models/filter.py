@@ -178,15 +178,33 @@ def _neighbor_query_keys(cfg, cloud: PatchCloud, sentinel: int):
     return torch.where(ok, key, torch.full_like(key, sentinel)), ok
 
 
+def _row_sums(vals, rows, valid, m, p: int):
+    """[p, C] sums of the pair values `vals` [PB, C] over each query row's
+    pairs where `m`, in slot order. `rows` ascend over the `valid` prefix
+    (window_pairs' layout), so each row's pairs are one run and the sum
+    is one sequential loop per (row, column) (segment_reduce): two calls
+    on the same inputs give the same bits on the card, which a float
+    index_add_ (atomics) does not, and on the CPU the bits equal
+    index_add_'s. Pairs outside `m` add nothing, whatever their values:
+    `vals`, the caller's temporary, is zeroed there in place (a second
+    [PB, C] copy would grow every graph pool that holds the pass)."""
+    key = torch.where(valid, rows, torch.full_like(rows, p))
+    offs = torch.searchsorted(key, torch.arange(p + 1, dtype=key.dtype,
+                                                device=key.device))
+    vals.masked_fill_(~m[:, None], 0.0)
+    return torch.segment_reduce(vals, "sum", offsets=offs, unsafe=True,
+                                initial=0.0)
+
+
 def _filter_neighbor_core(cams, cfg, thr, qcloud: PatchCloud,
                           cloud: PatchCloud, tab: CellTable,
                           pair_budget: int):
     """filterNeighbor verdicts for the query rows `qcloud` (a row slice
     of `cloud`, whose cell table `tab` is) over their window pairs,
     compacted to `pair_budget` (reference filter.py:281-414): (reject
-    [PQ] bool, dropped pairs). Pairs past the budget's valid prefix go to
-    the sink row. The quad fit's normal equations are accumulated as raw
-    moments of the tangent-frame coordinates (filter.cpp:403-455)."""
+    [PQ] bool, dropped pairs). The quad fit's normal equations are
+    accumulated as raw moments of the tangent-frame coordinates
+    (filter.cpp:403-455), per row by `_row_sums`."""
     p = qcloud.capacity
     dev = qcloud.coord.device
     ivalid = qcloud.images >= 0
@@ -211,7 +229,6 @@ def _filter_neighbor_core(cams, cfg, thr, qcloud: PatchCloud,
                          (Q[:, 3], Q[:, 4], Q[:, 5]), Q[:, 6], R[:, 7],
                          thr.neighbor * 4.0, radius=R[:, 9])
     m = pval & m
-    mrow = torch.where(m, rows, torch.full_like(rows, p)).long()
     mf = m.to(torch.float32)
     dxq = Q[:, 0] - R[:, 0]
     dyq = Q[:, 1] - R[:, 1]
@@ -236,9 +253,7 @@ def _filter_neighbor_core(cams, cfg, thr, qcloud: PatchCloud,
                 gb = gy ** bb if bb > 2 else gyp[bb]
                 mkeys.append((a, bb))
                 cols.append(mf * ga * gb)
-    S = torch.zeros((p + 1, len(cols)), device=dev)
-    S.index_add_(0, mrow, torch.stack(cols, -1))
-    S = S[:p]
+    S = _row_sums(torch.stack(cols, -1), rows, pval, m, p)
     cnt = S[:, 0].to(torch.int32)
     h = S[:, 1] / cnt.clamp(min=1)
     h = torch.where(h == 0.0, torch.ones_like(h), h)
@@ -266,10 +281,7 @@ def _filter_neighbor_core(cams, cfg, thr, qcloud: PatchCloud,
     fy = gy * xs[:, 5]
     pred = (xs[:, 0] * fx * fx + xs[:, 1] * fy * fy + xs[:, 2] * fx * fy
             + xs[:, 3] * fx + xs[:, 4] * fy)
-    res_sum = torch.zeros(p + 1, device=dev)
-    res_sum.index_add_(0, mrow, torch.where(m, (pred - fz).abs(),
-                                            torch.zeros_like(pred)))
-    res_sum = res_sum[:p]
+    res_sum = _row_sums((pred - fz).abs()[:, None], rows, pval, m, p)[:, 0]
 
     inum = (qcloud.images >= 0).sum(1).clamp(max=cfg.tau)
     u = get_unit(cams, qcloud.images.clamp(min=0).long(),

@@ -85,11 +85,15 @@ def run_clusters(prefix: str, names: list[str] | None = None,
     """Reconstruct this process's share of the clusters on its rank's
     device (comm.rank_device: cuda:LOCAL_RANK unless the caller names a
     CUDA index or asks for cpu). Replaces `sh pmvs.sh` (one OS process
-    per line) with one scheduler per process. Returns a ClusterRun per
-    assigned cluster."""
-    from ..models import engine
+    per line) with one scheduler per process. Every cluster runs on the
+    process's graph cache for that device (models/graphs.shared) unless
+    `run_kwargs` names another, so a cluster with an earlier one's
+    shapes replays its graphs, as the JAX package's clusters reuse its
+    compiled programs. Returns a ClusterRun per assigned cluster."""
+    from ..models import engine, graphs
     from .comm import rank_device
 
+    dev = None
     if process_index is None or process_count is None:
         process_index, process_count = process_topology()
     if names is None:
@@ -101,11 +105,14 @@ def run_clusters(prefix: str, names: list[str] | None = None,
             log(f"[{name}] already complete, skipping")
             results.append(ClusterRun(name=name, skipped=True))
             continue
+        if dev is None:
+            dev = rank_device(device)
+            run_kwargs.setdefault("graphs", graphs.shared(dev))
         t0 = time.time()
         log(f"[{name}] reconstructing on process "
             f"{process_index}/{process_count}")
         eng = engine.reconstruct(prefix, name, p_cap=p_cap, log=log,
-                                 device=rank_device(device), **run_kwargs)
+                                 device=dev, **run_kwargs)
         run = ClusterRun(name=name, patches=int(eng.cloud.count()),
                          seconds=time.time() - t0, stats=eng.stats)
         if checkpoint:

@@ -36,10 +36,12 @@ Port of the repository's root bench.py. Its stages:
    `profile_e2e.FULL`, 12 x 640x480, mask border 8, setEdge 0.4,
    expand_iters 3, max_waves 12, p_cap 200,000), each loaded once and
    run twice (`run_full.cold_and_steady`, run_full's own protocol): a
-   cold run, then a steady run whose engine shares the cold engine's
-   CUDA graphs (`graphs=`, as bench.py's two engines share the programs
-   jax compiled), unless the cold run overran its budget: then
-   the cold run is reported alone (`{tag}_steady` false). Keys
+   cold run on a fresh graph cache of its own (not the process's, which
+   may hold the scene's graphs already), then a steady run whose engine
+   shares the cold engine's CUDA graphs (`graphs=`, as bench.py's two
+   engines share the programs jax compiled), unless the cold run
+   overran its budget: then the cold run is reported alone
+   (`{tag}_steady` false). Keys
    `{tag}_patches`, `_seconds`, `_patches_per_sec`, `_steady`,
    `_phase_seconds` as bench.py's, with the cold run's seconds and
    patches, each run's graph cache (the steady run captures none) and

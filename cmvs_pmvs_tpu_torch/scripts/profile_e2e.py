@@ -185,14 +185,15 @@ def filter_subpasses(eng, dev: torch.device) -> dict:
 
 def profile(root: str, setup: Setup, device="cuda", trials: int = 1,
             profile_phases=(), trace_out: str | None = None,
-            graphs: bool | None = None) -> dict:
+            graphs=None) -> dict:
     """Run the engine on the tree at `root` `trials` times (the last one
-    kept), wrapped, with `graphs` as PMVSEngine takes it (None: CUDA
-    graphs on the card); then the filter sub-passes. With `profile_phases`,
-    the last run captures torch.profiler around each such span's first
-    instance, or, for "run" (named alone), around the whole run with
-    every span; summaries in ["profile"][phase] and, with `trace_out`,
-    chrome traces at <trace_out>.<phase>.json."""
+    kept), wrapped, with `graphs` as PMVSEngine takes it (None: the
+    process's CUDA graphs on the card; a RefineGraphs of the caller's
+    own for a fresh cache); then the filter sub-passes. With
+    `profile_phases`, the last run captures torch.profiler around each
+    such span's first instance, or, for "run" (named alone), around the
+    whole run with every span; summaries in ["profile"][phase] and, with
+    `trace_out`, chrome traces at <trace_out>.<phase>.json."""
     from ..models.engine import PMVSEngine, load_scene
     from ..utils.options import PMVSOptions
     whole = "run" in profile_phases

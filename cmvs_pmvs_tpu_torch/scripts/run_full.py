@@ -5,13 +5,14 @@ border 8, setEdge 0.4), level 0, csize 2, expand_iters 3 to the fixpoint
 of 12 waves, 8-iteration refine, p_cap 200,000 (`profile_e2e.FULL`), run
 twice in one process through `PMVSEngine.run` on one loaded scene: the
 first run pays the process's one-time costs (allocator growth, kernel
-library load, the CUDA graphs' warm-ups and captures), the second is the
-steady one. The warm engine takes the cold engine's graph cache
-(`graphs=`, models/graphs.RefineGraphs; None on the CPU), so it replays
-what the cold run captured, as scripts/run_full.py's warm engine reuses
-the programs its cold run compiled (`cold_and_steady`, which the bench's
-scene stages run too). Each run's kernel launches are the counters'
-difference across it; the counters themselves are left alone.
+library load, the CUDA graphs' warm-ups and captures: it takes a fresh
+graph cache of its own, models/graphs.RefineGraphs, whatever the process
+captured before), the second is the steady one. The warm engine takes
+the cold engine's graph cache (`graphs=`; None on the CPU), so it
+replays what the cold run captured, as scripts/run_full.py's warm engine
+reuses the programs its cold run compiled (`cold_and_steady`, which the
+bench's scene stages run too). Each run's kernel launches are the
+counters' difference across it; the counters themselves are left alone.
 
 It prints one JSON line and writes it to `--out` (default
 build/run_full.json), and nothing else: the card's name and power limit
@@ -95,10 +96,9 @@ def bars(patches: int, med: float, q90: float) -> dict:
 
 def timed_run(data, opt, setup: Setup, dev, graphs=None) -> tuple:
     """One engine run of `setup` on the loaded scene `data`, timed to a
-    synchronize; `graphs` as PMVSEngine takes it (None: a fresh cache on
-    CUDA). Returns the engine and the run's patches, seconds, phase
-    seconds, kernel launches and graph cache (what it captured; None
-    without graphs)."""
+    synchronize; `graphs` as PMVSEngine takes it. Returns the engine and
+    the run's patches, seconds, phase seconds, kernel launches and graph
+    cache (what it captured; None without graphs)."""
     from ..models.engine import PMVSEngine
     before = launch_counts()
     cached = graphs.stats() if graphs is not None else None
@@ -117,13 +117,14 @@ def timed_run(data, opt, setup: Setup, dev, graphs=None) -> tuple:
 
 def cold_and_steady(setup: Setup = FULL, device="cuda",
                     budget_s: float = math.inf, log=lambda *a: None) -> dict:
-    """`setup` written as a fresh tree under the temp directory (removed
-    once loaded), loaded once and run cold, then, if the cold run took at
-    most `budget_s`, steady: the steady engine takes the cold engine's
-    graph cache, and the cold engine is let go before the steady run
-    starts. Returns the load seconds, the cold and the steady run's stats
-    (`timed_run`; steady None past the budget) and the surface distance /
-    dscale median and q90 of the last run's cloud."""
+    """`setup` written as a fresh tree under the temp directory (removed once
+    loaded), loaded once and run cold on a fresh graph cache of its own
+    (on CUDA), then, if the cold run took at most `budget_s`, steady:
+    the steady engine takes the cold engine's graph cache, and the cold
+    engine is let go before the steady run starts. Returns the load
+    seconds, the cold and the steady run's stats (`timed_run`; steady
+    None past the budget) and the surface distance / dscale median and
+    q90 of the last run's cloud."""
     from ..models.engine import load_scene
     from ..utils.options import PMVSOptions
     dev = resolve_device(device)
@@ -145,7 +146,9 @@ def cold_and_steady(setup: Setup = FULL, device="cuda",
         load_seconds = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    eng, cold = timed_run(data, opt, setup, dev)
+    from ..models.graphs import RefineGraphs
+    eng, cold = timed_run(data, opt, setup, dev, RefineGraphs(dev)
+                          if dev.type == "cuda" else None)
     stamp("cold", cold)
     steady = None
     if cold["seconds"] <= budget_s:

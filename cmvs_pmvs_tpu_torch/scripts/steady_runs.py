@@ -66,7 +66,8 @@ def run(graphs):
          "graphs": eng.graphs.stats() if eng.graphs else None}
     del eng
     return r
-for kind, graphs in (("eager", lambda: False), ("fresh", lambda: True),
+for kind, graphs in (("eager", lambda: False),
+                     ("fresh", lambda: RefineGraphs(dev)),
                      ("kept", lambda: kept)):
     if kind == "kept":
         out["kept_fill"] = run(kept)

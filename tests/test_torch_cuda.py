@@ -1122,3 +1122,218 @@ def test_refine_graph_replays_the_eager_call(setup, depth, monkeypatch):
     g.process(*args, refine_iters=4, **kw)
     torch.cuda.synchronize()
     assert g.stats()["graphs"] == 2 and _n("incc_fan_v1") > k3
+
+
+@pytest.fixture(scope="module")
+def scene_b(setup):
+    """The setup's plane at its shapes with another texture (seed 43):
+    cameras, pyramid and view data of a second scene."""
+    sc = make_plane_scene(num_cameras=T, width=320, height=240, focal=400.0,
+                          seed=43)
+    dev = setup["dev"]
+    pyr = build_pyramids(list(sc.images), None, 3, device=dev)
+    assert not torch.equal(pyr.atlas_k, setup["pyr"].atlas_k)
+    return dict(cams=build_camera_set(sc.P, device=dev), pyr=pyr,
+                visdata=torch.ones((T, T), dtype=torch.bool, device=dev))
+
+
+def _fields_equal(a, b) -> list:
+    """The leaves of two program results that differ."""
+    from cmvs_pmvs_tpu_torch.models.graphs import flatten
+    la, lb = [], []
+    flatten(a, la)
+    flatten(b, lb)
+    assert len(la) == len(lb)
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if not torch.equal(x, y)]
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_chunk_captured_on_one_scene_replays_on_another(setup, scene_b,
+                                                        depth):
+    """A chunk captured on scene A and replayed on scene B (the same
+    shapes) gives, bit for bit, the eager call on B and a capture on B;
+    the scene is copied into the resident one once per switch of scene,
+    not once per call."""
+    from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
+    from cmvs_pmvs_tpu_torch.models.process import process_candidates
+    args, kw = _process_case(setup, depth)
+    args_b = (scene_b["cams"], scene_b["pyr"]) + args[2:4] \
+        + (scene_b["visdata"],) + args[5:]
+    want_b = process_candidates(*args_b, refine_iters=4, **kw)
+    g = RefineGraphs(setup["dev"])
+    loads = []
+    for a in (args, args, args_b, args_b, args, args_b):
+        before = g.stats()["scene_loads"]
+        got = g.process(*a, refine_iters=4, **kw)
+        loads.append(g.stats()["scene_loads"] - before)
+    assert loads == [3, 0, 3, 0, 3, 3]
+    assert g.stats()["graphs"] == 1
+    fresh = RefineGraphs(setup["dev"])
+    fresh.process(*args_b, refine_iters=4, **kw)          # capture on B
+    on_b = fresh.process(*args_b, refine_iters=4, **kw)
+    torch.cuda.synchronize()
+    assert _fields_equal(want_b, got) == [] and _fields_equal(on_b, got) == []
+    assert int(want_b.success.sum()) > B // 4
+
+
+def _seed_args(cams, pyr, dev):
+    from cmvs_pmvs_tpu_torch.models.config import EngineConfig, Thresholds
+    from cmvs_pmvs_tpu_torch.models.engine import compute_distances
+    from cmvs_pmvs_tpu_torch.models.views import collect_images_all
+    from cmvs_pmvs_tpu_torch.ops.detect import detect_features
+    cfg = EngineConfig(level=0, csize=2, wsize=7, tn=T, n=T, tau=T,
+                       min_image_num=3, t_store=T, p_cap=4096, gh=120,
+                       gw=160)
+    thr = Thresholds.initial(0.7, 10.0 * np.pi / 180.0, 2.5, dev)
+    feats = detect_features(pyr.atlas[:, :240, :320, :],
+                            pyr.mask_atlas[:, :240, :320]
+                            * pyr.edge_atlas[:, :240, :320],
+                            pyr.widths[0], pyr.heights[0], fcsize=16)
+    views, valid = collect_images_all(
+        cams, torch.ones((T, T), dtype=torch.bool, device=dev),
+        torch.as_tensor(compute_distances(cams), device=dev), T, -1)
+    return (cams, pyr, cfg, thr, feats, views, valid)
+
+
+def test_program_captured_on_one_scene_replays_on_another(setup, scene_b):
+    """seed_discover captured on scene A and replayed on scene B gives,
+    bit for bit, its eager call on B and its capture on B; the scene is
+    copied once per switch."""
+    from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
+    from cmvs_pmvs_tpu_torch.models.seed import seed_discover
+    dev = setup["dev"]
+    a = _seed_args(setup["cams"], setup["pyr"], dev)
+    b = _seed_args(scene_b["cams"], scene_b["pyr"], dev)
+    want_b = seed_discover(*b)
+    again = seed_discover(*b)
+    assert _fields_equal(want_b, again) == []
+    g = RefineGraphs(dev)
+    loads = []
+    for x in (a, a, b, b):
+        before = g.stats()["scene_loads"]
+        got = seed_discover(*x, graphs=g)
+        loads.append(g.stats()["scene_loads"] - before)
+    assert loads == [2, 0, 2, 0] and g.stats()["graphs"] == 1
+    fresh = RefineGraphs(dev)
+    seed_discover(*b, graphs=fresh)
+    on_b = seed_discover(*b, graphs=fresh)
+    torch.cuda.synchronize()
+    assert _fields_equal(want_b, got) == [] and _fields_equal(on_b, got) == []
+    assert int(want_b[2]) > 0
+
+
+def test_scene_used_least_recently_dropped_when_the_card_is_short(
+        setup, monkeypatch):
+    """With less than half the card free, the first capture on a scene
+    value of a new signature (here a gamma pyramid) drops the resident
+    value used least recently (the byte pyramid) and the graphs that read
+    it (a new memory pool once none is left); the new graph and a
+    recapture of the dropped one give the eager calls' bits."""
+    import dataclasses
+    from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
+    from cmvs_pmvs_tpu_torch.models.process import process_candidates
+    args, kw = _process_case(setup, 0)
+    atlas = _gamma(setup["pyr"].atlas)
+    gamma = dataclasses.replace(setup["pyr"], atlas=atlas, atlas_k=atlas,
+                                byte_valued=False)
+    other = args[:1] + (gamma,) + args[2:]
+    want = process_candidates(*args, refine_iters=4, **kw)
+    want_other = process_candidates(*other, refine_iters=4, **kw)
+    g = RefineGraphs(setup["dev"])
+    g.process(*args, refine_iters=4, **kw)
+    pool = g.pool
+    _, total = torch.cuda.mem_get_info()
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "mem_get_info", lambda device=None: (0, total))
+        got = g.process(*other, refine_iters=4, **kw)
+        s = g.stats()
+        assert (s["graphs"], s["held"], s["dropped"]) == (2, 1, 1)
+        assert g.pool != pool and len(g.residents.by_sig) == 3
+        assert _fields_equal(want_other, got) == []
+    got = g.process(*args, refine_iters=4, **kw)      # captured again
+    again = g.process(*args, refine_iters=4, **kw)
+    torch.cuda.synchronize()
+    s = g.stats()
+    assert (s["graphs"], s["held"], s["dropped"]) == (3, 2, 1)
+    assert _fields_equal(want, got) == [] and _fields_equal(want, again) == []
+
+
+def test_capture_on_known_scene_values_makes_room_too(setup, monkeypatch):
+    """With less than half the card free, a capture of a new key whose
+    scene values are all resident already (another refine_iters on the
+    gamma pyramid) still drops the other resident value used least
+    recently (the byte pyramid) and its graph; the new graph gives the
+    eager call's bits."""
+    import dataclasses
+    from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
+    from cmvs_pmvs_tpu_torch.models.process import process_candidates
+    args, kw = _process_case(setup, 0)
+    atlas = _gamma(setup["pyr"].atlas)
+    gamma = dataclasses.replace(setup["pyr"], atlas=atlas, atlas_k=atlas,
+                                byte_valued=False)
+    other = args[:1] + (gamma,) + args[2:]
+    want = process_candidates(*other, refine_iters=2, **kw)
+    g = RefineGraphs(setup["dev"])
+    g.process(*args, refine_iters=4, **kw)
+    g.process(*other, refine_iters=4, **kw)
+    assert (g.stats()["held"], len(g.residents.by_sig)) == (2, 4)
+    _, total = torch.cuda.mem_get_info()
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "mem_get_info", lambda device=None: (0, total))
+        got = g.process(*other, refine_iters=2, **kw)
+    torch.cuda.synchronize()
+    s = g.stats()
+    assert (s["graphs"], s["held"], s["dropped"]) == (3, 2, 1)
+    assert len(g.residents.by_sig) == 3
+    assert _fields_equal(want, got) == []
+
+
+def _pair_sums_case(dev, p=4096, per=300, c=27, seed=5):
+    """window_pairs' layout at the filter chunk's density: ~`per` pairs a
+    row in ascending row runs, a masked third of them NaN, a budget tail
+    of invalid slots pointing back at row 0."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = p * per
+    rows = torch.sort(torch.randint(0, p, (n,), generator=g))[0]
+    rows = torch.cat([rows, torch.zeros(n // 8, dtype=rows.dtype)])
+    valid = torch.arange(rows.numel()) < n
+    m = valid & (torch.rand(rows.numel(), generator=g) > 0.3)
+    vals = torch.randn(rows.numel(), c, generator=g) * 10
+    vals[~m] = float("nan")
+    return [x.to(dev) for x in (vals, rows.int(), valid, m)] + [p]
+
+
+def test_neighbor_row_sums_deterministic_on_the_card(setup):
+    """filterNeighbor's per-row moment sums (`_row_sums`) give the same
+    bits on every call, eager and replayed from a CUDA graph, where a
+    float index_add_ (atomics) need not, and without a host sync; they
+    equal float64 sums within 1e-4 of the row's magnitude."""
+    from cmvs_pmvs_tpu_torch.models.filter import _row_sums
+    vals, rows, valid, m, p = _pair_sums_case(setup["dev"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = _row_sums(vals, rows, valid, m, p)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _ in range(3):
+        assert torch.equal(_row_sums(vals, rows, valid, m, p), first)
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        _row_sums(vals, rows, valid, m, p)
+        with torch.cuda.graph(g):
+            out = _row_sums(vals, rows, valid, m, p)
+    torch.cuda.current_stream().wait_stream(s)
+    g.replay()
+    assert torch.equal(out, first)
+    key = torch.where(m, rows.long(), p)
+    want = torch.zeros(p + 1, vals.shape[1], dtype=torch.float64,
+                       device=vals.device)
+    want.index_add_(0, key, torch.where(m[:, None], vals.double(), 0.0))
+    mag = torch.zeros_like(want).index_add_(
+        0, key, torch.where(m[:, None], vals.double().abs(), 0.0))
+    assert bool(((first.double() - want[:p]).abs()
+                 <= 1e-4 * mag[:p].clamp(min=1.0)).all())

@@ -309,9 +309,17 @@ def test_program_calls_split_scene_inputs_and_static(state):
     TX.commit_select(disc, P, 512, graphs=rec)
     assert rec.calls[1][0] == "commit_select" and rec.calls[1][1] == () \
         and rec.calls[1][3] == {"p": P, "cbudget": 512}
-    # the graph key's scene part: tensors by identity, the config by value
-    key = graphs.scene_key((s["cams"], s["cfg"], s["grid"].occ))
-    assert key[1] is s["cfg"] and key[2] == (id(s["grid"].occ),)
+    # the graph key's scene part: tensors by shape, dtype and strides
+    # (as JAX keys a traced argument), the config by value; a copy of the
+    # scene gives the same key
+    occ = s["grid"].occ
+    key = graphs.scene_key((s["cams"], s["cfg"], occ))
+    assert key[1] is s["cfg"]
+    assert key[2] == (tuple(occ.shape), occ.dtype, occ.stride())
+    cams = dataclasses.replace(s["cams"], **{
+        f.name: getattr(s["cams"], f.name).clone()
+        for f in dataclasses.fields(s["cams"])})
+    assert graphs.scene_key((cams, s["cfg"], occ.clone())) == key
 
 
 def test_flatten_round_trip(state):

@@ -275,6 +275,32 @@ def _early_exit_labels(mn, qn, alive):
     return label
 
 
+@pytest.mark.parametrize("tail", [0, 7])
+def test_neighbor_row_sums_equal_index_add(tail):
+    """filterNeighbor's per-row moment sums (`_row_sums`, one sequential
+    loop per row so that the card gives the same bits on every call)
+    equal the sink-row index_add_ they replace, bit for bit on the CPU:
+    masked pairs holding NaN add nothing, rows without pairs sum to 0,
+    invalid budget slots (their rows back at 0, as window_pairs leaves
+    them) are ignored."""
+    g = torch.Generator().manual_seed(3 + tail)
+    p, n = 40, 500
+    rows = torch.sort(torch.randint(0, p - 5, (n,), generator=g))[0]
+    rows = torch.cat([rows, torch.zeros(tail, dtype=rows.dtype)]).int()
+    valid = torch.arange(n + tail) < n
+    m = valid & (torch.rand(n + tail, generator=g) < 0.7)
+    vals = torch.randn(n + tail, 27, generator=g) * 10
+    vals[~m] = float("nan")
+    want = torch.zeros(p + 1, 27)
+    want.index_add_(0, torch.where(m, rows, p).long(),
+                    torch.where(m[:, None], vals, 0.0))
+    got = TF._row_sums(vals, rows, valid, m, p)
+    assert torch.equal(got.view(torch.int32), want[:p].view(torch.int32))
+    assert bool((got[p - 5:] == 0).all())
+    one = TF._row_sums(vals[:, :1], rows, valid, m, p)[:, 0]
+    assert torch.equal(one.view(torch.int32), want[:p, 0].view(torch.int32))
+
+
 def test_small_groups_labels_equal_an_early_exit_loop(state):
     """On the state's neighbour graph, and on a chain of 300 rows whose
     fixpoint takes many rounds: the same labels."""
