@@ -44,7 +44,10 @@ raises on failure (the script then exits non-zero):
    are in phase 5.
 9. Phase 5's protocol with refine.USE_FAN = False (the central-
    difference LM on the card, its objective on K4): K4 launched; the
-   same bars; K4's launches replayed.
+   same bars; K4's launches replayed. Its peak memory is logged beside
+   what the card holds at the run's end (torch.cuda.memory_snapshot()'s
+   live blocks): the bytes the launch capture lists keep, and the
+   largest live blocks with their holders.
 10. The fan-kernel ablations K5, K6, K7 (ops/ablate) on the inputs of
    their drivers (cmvs_pmvs_tpu_torch/scripts/ablate_fan*.py: 8192
    patches x 6 views, fan 4; K7 also fan 1): every mode against its
@@ -78,10 +81,15 @@ raises on failure (the script then exits non-zero):
    depth map equal to the gathered rows' own and its finite cells
    overlapping the single rank's by >= 0.99, K4 launched on every rank;
    then the same step at world 1 over NCCL, bit-equal to the ungrouped
-   call. (b) The data-parallel engine (reconstruct(..., mesh=
-   make_engine_mesh())) on phase 5's protocol on 2 ranks: phase 5's
-   bars, the count within 1% of phase 5's, the written .patch complete,
-   the ranks' clouds byte-identical, K1 and K2 launched on both.
+   call. (b) The data-parallel engine (PMVSEngine(..., mesh=
+   make_engine_mesh()), each phase's rows sharded over the ranks) on
+   phase 5's protocol on 2 and then on 4 ranks: phase 5's bars, the
+   count within 1% of phase 5's (the first per-round stat that differs
+   from phase 5's logged), the written .patch complete, the ranks'
+   clouds byte-identical, K1 and K2 launched on every rank, each rank's
+   filter-stage K2 launches at most ceil(one rank's / ranks) + 1 a
+   round; each rank's seconds, phase seconds, peak memory and staged
+   collectives (calls and bytes) logged.
    (c) cross_cluster.exchange_halo between phase 11b's two clusters
    after their first expand round, then their other two: something
    injected, the median surface distance / dscale < 0.35 and within 0.1
@@ -96,11 +104,10 @@ raises on failure (the script then exits non-zero):
    (bar 1e-4; K1/K3 on valid pairs), timed beside its bound (a float32
    tap pixel counts 12 bytes); the unblocked ones also with their taps
    moved 15 px right, past their block (that rule's own path, which the
-   reference's geometry never takes). (c) Phase 5's protocol on the gamma
-   pyramid: only the float32 K1 and K2 launch, phase 5's bars, the
-   count and seconds logged beside phase 5's, the launches replayed.
-   Then at expand_iters=1, beside a default run at that depth (counts
-   logged as a ratio to it): (d) the gamma pyramid with USE_FAN_V2 =
+   reference's geometry never takes). Then at expand_iters=1, beside a
+   default run at that depth (counts logged as a ratio to it): (c) the
+   gamma pyramid: only the float32 K1 and K2 launch, its files read back,
+   the launches replayed; (d) the gamma pyramid with USE_FAN_V2 =
    False (float32 K3) and with USE_FAN = False (float32 K4); (e)
    texture._USE_BLOCK_SAMPLING = False with USE_FAN = False on both
    pyramids (the unblocked K2 and K4); (f) texture.SAMPLING = "bicubic"
@@ -112,10 +119,13 @@ raises on failure (the script then exits non-zero):
    verify_e2e (PASS required); profile_wave's capture of 3 bench waves
    under torch.profiler (K1's kernel must be among the device ops,
    1 + 8 times a wave, as its counter says); profile_e2e on the full
-   protocol with its seed, expand and filter spans profiled (device ops
-   in each; busy shares logged); run_full, cold then warm (phase 5's
-   bars; the warm run, on the cold run's graph cache, captures no
-   graph; its line also written to build/run_full.json); bench_fan2 (K3
+   protocol's scene at one expand round of one wave with its seed,
+   expand and filter spans profiled (device ops in each; busy shares
+   logged);
+   run_full at one expand round, cold then warm (phase 5's bars; the
+   warm run, on the cold run's graph cache, captures no graph; its line
+   also written to build/run_full.json; phase 17 runs its stages at
+   full depth); bench_fan2 (K3
    against K1, which must agree within 1e-4); ab_broyden's kernel A/B.
 15. The graphed path (models/graphs: one CUDA graph per refine bucket,
    the default on the card; phases 5, 8, 9 and 13 run `graphs=False`,
@@ -131,10 +141,12 @@ raises on failure (the script then exits non-zero):
    with the eager call's launches: depth 0 on phase 3's plane batch,
    depth 1 on (b)'s scene, cloud and grid. (c) Both paths' launch calls
    (the profiler's cudaLaunchKernel + cudaGraphLaunch) in seed, expand
-   and filter, their steady wall over two runs each (graphed with a
-   fresh cache and with one kept across runs), peak memory, and the
-   graphs captured with their capture seconds. (d) At expand_iters=1,
-   USE_FAN_V2 = False (K3), USE_FAN = False (K4) and the gamma pyramid
+   and filter at expand_iters=1 with one wave, the steady wall of one
+   full run of each
+   (eager, graphed with a fresh cache and with that cache kept; phase 17
+   gives the default path's spread), peak memory, and the graphs
+   captured with their capture seconds. (d) At expand_iters=1 with two
+   waves, USE_FAN_V2 = False (K3), USE_FAN = False (K4) and the gamma pyramid
    (float32 K1/K2), each graphed and eager: exactly its instantiations,
    the graphed counts equal to the eager ones, phase 5's accuracy bars.
    The default path also replays the programs of the waves and of the
@@ -173,16 +185,16 @@ raises on failure (the script then exits non-zero):
 18. Graphs that outlive a scene (models/graphs: keys by shape as the JAX
    package keys its jits, one cache per device for the process, each
    signature's scene resident and copied in once per switch), every
-   kernel counter zeroed before and read after. (a) Two runs of the
+   kernel counter zeroed before and read after. (a) A run of the
    seed-43 scene (`make_occluded_scene(..., seed=43)`, phase 5's shapes)
-   each on a fresh cache of its own, then `reconstruct` on phase 5's
+   on a fresh cache of its own, then `reconstruct` on phase 5's
    scene and on the seed-43 scene on the process's cache: the second
    captures exactly the keys the first never used (buckets only its
    waves reach; a new bucket compiles in JAX too) and replays the rest
    (at least 80% of its keys, at most a quarter of the first's
    captures, each new key an old one but for bucket fields, each scene
    value copied in once), meets phase 5's bars, and its count lies
-   within the fresh runs' spread (outside it, within 0.1% of it, as
+   within the fresh run's (outside it, within 0.1% of it, as
    15(b) holds the graphed run to phase 5); one more run on the kept
    cache captures nothing; the seconds of each. (b) Every chunk and program key of that kept
    run, replayed from the captures made on phase 5's scene, against a
@@ -202,6 +214,10 @@ raises on failure (the script then exits non-zero):
    cold runs take private caches, and the cache is cleared before phase
    12's ranks share the card and before 15(c) and 17 measure memory and
    time.
+19. The central-difference protocol (phase 9's) through `reconstruct` on
+   the process's cache as phase 18 leaves it (three signatures' graphs
+   and resident scenes): phase 5's bars, K4 and K2 launched; the pool's
+   reserved bytes before and after, the peak and the graphs logged.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -1059,10 +1075,37 @@ def loaded_scenes(root: str, dev) -> dict:
         scene.pyr, atlas=g.atlas, atlas_k=g.atlas_k, byte_valued=False)))}
 
 
+def held_memory(calls: dict) -> dict:
+    """What the card holds right after a run whose launch capture lists
+    `calls` are still alive (torch.cuda.memory_snapshot()'s active
+    blocks): the bytes allocated, the bytes of the distinct storages the
+    capture lists keep, and the five largest live blocks, each with the
+    kernel and argument shape that keeps it, if a capture list does."""
+    import torch
+    owner = {}
+    for name, cl in calls.items():
+        for args, kwargs in cl or ():
+            for t in (*args, *kwargs.values()):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    st = t.untyped_storage()
+                    owner[st.data_ptr()] = (st.nbytes(), f"{name} "
+                                            f"{tuple(t.shape)} {t.dtype}")
+    blocks = [(b["size"], b["address"]) for seg in torch.cuda.memory_snapshot()
+              for b in seg["blocks"] if b["state"] == "active_allocated"]
+    blocks.sort(reverse=True)
+    return {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "captured_gb": sum(n for n, _ in owner.values()) / 1e9,
+            "captured_storages": len(owner),
+            "largest": [(round(size / 1e6, 2), owner.get(addr, (0, "not "
+                         "a capture list's"))[1]) for size, addr in
+                        blocks[:5]]}
+
+
 def phase_protocol(dev, scene, root, label: str, flags: dict,
                    need: tuple, absent: tuple = (), texture_flags=None,
                    loaded=None, expand_iters: int = 3,
-                   min_patches: int = 80_000, outputs: bool = True) -> dict:
+                   min_patches: int = 80_000, outputs: bool = True,
+                   memory: bool = False) -> dict:
     """One full-protocol run with the refine module's `flags` and the
     texture module's `texture_flags` set (and restored after): through
     `reconstruct` (the scene loaded from `root`), or on `loaded`, an
@@ -1074,8 +1117,9 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     not. Bars: at least `min_patches` patches, surface distance / dscale
     median < 0.4 and q90 < 1.5, the cloud on the card, and (outputs) the
     written files read back. Returns the launches, the captured launch
-    arguments of K1-K4 by instantiation, the count and the run's
-    seconds."""
+    arguments of K1-K4 by instantiation, the count, the run's seconds,
+    its per-round stats and its peak memory; with `memory`, also what
+    the card holds at the run's end (`held_memory`), logged."""
     import torch
     from cmvs_pmvs_tpu_torch.io.patches import read_patch_file, read_pset
     from cmvs_pmvs_tpu_torch.io.ply import read_ply_xyz
@@ -1120,6 +1164,8 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
         total = time.time() - t0
         peak = torch.cuda.max_memory_allocated() / 1e9
         launches = {k: w.launches for k, w in wrappers.items()}
+        held = held_memory({k: wrappers[k].capture for k in kept}) \
+            if memory else None
     finally:
         for k, v in saved.items():
             setattr(refine, k, v)
@@ -1148,6 +1194,12 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
         f"patches, surface distance / dscale median {med:.4f} q90 "
         f"{q90:.4f}, total {total:.2f} s, phases {phases}, peak device "
         f"memory {peak:.2f} GB")
+    if held is not None:
+        log(f"protocol[{label}]: at the run's end (peak {peak:.2f} GB) the "
+            f"card holds {held['allocated_gb']:.2f} GB allocated, of them "
+            f"{held['captured_gb']:.2f} GB in the {held['captured_storages']}"
+            f" storages the launch capture lists keep; the largest live "
+            f"blocks (MB, holder) {held['largest']}")
     log(f"protocol[{label}]: kernel launches "
         f"{ {k: v for k, v in launches.items() if v} }; windows pairs "
         f"with a tap outside the 20-px block: {clip.get('clipped', 0)} of "
@@ -1167,9 +1219,11 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     if not (med < 0.4 and q90 < 1.5):
         raise AssertionError(f"{label}: accuracy bars missed: median "
                              f"{med}, q90 {q90}")
+    res = {"launches": launches, "calls": calls, "n": n, "seconds": total,
+           "median": med, "q90": q90, "peak": peak, "stats": eng.stats,
+           "held": held}
     if not outputs:
-        return {"launches": launches, "calls": calls, "n": n,
-                "seconds": total, "median": med, "q90": q90, "peak": peak}
+        return res
     base = os.path.join(root, "models", "option.txt")
     counts = {"patch": len(read_patch_file(base + ".patch")),
               "ply": len(read_ply_xyz(base + ".ply")),
@@ -1177,8 +1231,7 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
     if any(c != n for c in counts.values()):
         raise AssertionError(f"{label}: output counts {counts} != {n}")
     log(f"protocol[{label}]: outputs read back {counts}")
-    return {"launches": launches, "calls": calls, "n": n, "seconds": total,
-            "median": med, "q90": q90, "peak": peak}
+    return res
 
 
 def replay(calls, launch) -> dict:
@@ -1383,10 +1436,10 @@ def phase_cmvs_scale() -> dict:
     return {"card_equals_cpu": same_cpu}
 
 
-def phase_pipeline(dev) -> dict:
+def phase_pipeline(dev, scene) -> dict:
     """Phase 11b: cmvs3 -> genOption -> pmvs3_all -> merge on the card,
-    on phase 5's occluded scene with SfM points over +-2.5 of the
-    ground (each camera sees a part of them)."""
+    on phase 5's occluded scene (`scene`) with SfM points over +-2.5 of
+    the ground (each camera sees a part of them)."""
     from cmvs_pmvs_tpu_torch.io.patches import read_patch_file, read_pset
     from cmvs_pmvs_tpu_torch.io.ply import read_ply_xyz
     from cmvs_pmvs_tpu_torch.models.cmvs import run_cmvs
@@ -1394,7 +1447,7 @@ def phase_pipeline(dev) -> dict:
     from cmvs_pmvs_tpu_torch.parallel.clusters import (merge_models,
                                                        run_clusters)
     from cmvs_pmvs_tpu_torch.utils.synthetic import write_bundle_file
-    scene, root = write_scene()
+    scene, root = write_scene(scene=scene)
     write_bundle_file(scene, root, extent=2.5)
     t0 = time.time()
     for maximage in (6, 5, 4, 3):
@@ -1537,37 +1590,82 @@ def phase_view_refine(pool, dev) -> dict:
     return summed_launches(outs)
 
 
-def phase_dp_engine(pool, dev, n_default: int, launches_default: dict):
-    """Phase 12b: the data-parallel engine on 2 ranks sharing the card,
-    the full protocol in the default configuration."""
+def first_stats_difference(stats: list, want: list) -> str:
+    """The first filter round and stat (round order, then key order) in
+    which an engine's per-round `stats` differ from `want`'s."""
+    for i, (got, ref) in enumerate(zip(stats, want)):
+        for k in ref:
+            if got.get(k) != ref[k]:
+                return f"round {i} {k}: {got.get(k)} against {ref[k]}"
+    return "none" if len(stats) == len(want) else \
+        f"{len(stats)} rounds against {len(want)}"
+
+
+def phase_dp_engine(pool, dev, scene, protocol5: dict):
+    """Phase 12b: the data-parallel engine, the cloud's rows sharded over
+    the ranks (parallel/engine_shard), on 2 and then 4 ranks sharing the
+    card, the full protocol in the default configuration on phase 5's
+    scene (`scene`), against phase 5's one-rank run (`protocol5`,
+    phase_protocol's result)."""
     from cmvs_pmvs_tpu_torch.io.patches import read_patch_file
+    from cmvs_pmvs_tpu_torch.ops.texture import GRAB_CHUNK
     from cmvs_pmvs_tpu_torch.parallel import workers
-    scene, root = write_scene("chip_smoke_dp")
-    run = dict(expand_iters=3, max_waves=12, refine_iters=8)
-    outs = pool.run(workers.engine_job, 2, root, "option.txt", 200_000, run)
-    n = outs[0]["count"]
-    d = scene.surface_distance(outs[0]["coord"][:, :3]) / outs[0]["dscale"]
-    med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
-    written = len(read_patch_file(os.path.join(root, "models",
-                                               "option.txt.patch")))
-    log(f"dp_engine[2 ranks]: {n} patches (phase 5: {n_default}), surface "
-        f"distance / dscale median {med:.4f} q90 {q90:.4f}, written {written}"
-        f"; clouds byte-identical: {outs[0]['digest'] == outs[1]['digest']}")
-    log(f"dp_engine: {rank_line(outs)}; phase 5's launches "
-        f"{ {k: v for k, v in launches_default.items() if v} }")
-    if outs[0]["digest"] != outs[1]["digest"]:
-        raise AssertionError("dp_engine: the ranks' clouds differ")
-    if not (n >= 80_000 and med < 0.4 and q90 < 1.5 and written == n
-            and abs(n - n_default) <= n_default // 100):
-        raise AssertionError(f"dp_engine: bars missed: {n} patches "
-                             f"(phase 5 {n_default}), median {med}, q90 "
-                             f"{q90}, written {written}")
-    if any(o["launches"]["incc_fan"] <= 0 or o["launches"]["windows"] <= 0
-           for o in outs):
-        raise AssertionError("dp_engine: K1 and K2 not launched on both "
-                             "ranks")
+    n_default = protocol5["n"]
+    launches_default = protocol5["launches"]
+    summed = {}
+    _, root = write_scene("chip_smoke_dp", scene)
+    for world in (2, 4):
+        label = f"dp_engine[{world} ranks]"
+        outs = pool.run(workers.engine_job, world, root, "option.txt",
+                        200_000, PROTOCOL_RUN)
+        n = outs[0]["count"]
+        d = scene.surface_distance(outs[0]["coord"][:, :3]) \
+            / outs[0]["dscale"]
+        med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
+        written = len(read_patch_file(os.path.join(root, "models",
+                                                   "option.txt.patch")))
+        same = all(o["digest"] == outs[0]["digest"] for o in outs)
+        differs = first_stats_difference(outs[0]["stats"],
+                                         protocol5["stats"])
+        log(f"{label}: {n} patches (phase 5: {n_default}; the first stat "
+            f"that differs from phase 5's: {differs}), surface distance / "
+            f"dscale median {med:.4f} q90 {q90:.4f}, written {written}; "
+            f"clouds byte-identical: {same}")
+        log(f"{label}: {rank_line(outs)}; phase 5's launches "
+            f"{ {k: v for k, v in launches_default.items() if v} }")
+        bounds = []
+        for r, o in enumerate(outs):
+            per_round = []
+            for rd in o["filter_rounds"]:
+                replicated = -(-rd["rows"] // GRAB_CHUNK)
+                k2 = rd["launches"].get("windows", 0)
+                per_round.append((rd["rows"], k2, replicated))
+                if k2 > -(-replicated // world) + 1:
+                    bounds.append(f"rank {r}: {k2} K2 launches on "
+                                  f"{rd['rows']} rows, bound "
+                                  f"{-(-replicated // world) + 1}")
+            log(f"{label}: rank {r} filter stages (prefix rows, K2 "
+                f"launches, one rank's K2 launches on that prefix) "
+                f"{per_round}; phase seconds "
+                f"{ {k: round(v, 3) for k, v in o['phases'].items()} }")
+        if not same:
+            raise AssertionError(f"{label}: the ranks' clouds differ")
+        if not (n >= 80_000 and med < 0.4 and q90 < 1.5 and written == n
+                and abs(n - n_default) <= n_default // 100):
+            raise AssertionError(f"{label}: bars missed: {n} patches "
+                                 f"(phase 5 {n_default}), median {med}, "
+                                 f"q90 {q90}, written {written}")
+        if any(o["launches"]["incc_fan"] <= 0 or o["launches"]["windows"]
+               <= 0 for o in outs):
+            raise AssertionError(f"{label}: K1 and K2 not launched on "
+                                 f"every rank")
+        if bounds:
+            raise AssertionError(f"{label}: filter-stage K2 launches past "
+                                 f"the bound: {bounds}")
+        summed = {k: summed.get(k, 0) + v
+                  for k, v in summed_launches(outs).items()}
     shutil.rmtree(root, ignore_errors=True)
-    return summed_launches(outs)
+    return summed
 
 
 def phase_halo(pool, pipeline: dict) -> dict:
@@ -1602,8 +1700,7 @@ def phase_halo(pool, pipeline: dict) -> dict:
     return summed_launches(outs)
 
 
-def phase_multi_rank(dev, n_default: int, launches_default: dict,
-                     pipeline: dict) -> dict:
+def phase_multi_rank(dev, scene, protocol5: dict, pipeline: dict) -> dict:
     """Phase 12: the multi-rank paths, ranks spawned once (4 processes
     sharing the card: gloo for world > 1, NCCL for world 1)."""
     import torch
@@ -1620,8 +1717,8 @@ def phase_multi_rank(dev, n_default: int, launches_default: dict,
             f"({time.time() - t0:.2f} s to start)")
         for label, fn in (
                 ("view_refine", lambda: phase_view_refine(pool, dev)),
-                ("dp_engine", lambda: phase_dp_engine(
-                    pool, dev, n_default, launches_default)),
+                ("dp_engine", lambda: phase_dp_engine(pool, dev, scene,
+                                                      protocol5)),
                 ("halo", lambda: phase_halo(pool, pipeline))):
             t1 = time.time()
             runs[label] = fn()
@@ -1752,18 +1849,18 @@ def moved_inputs(args, t: int):
     return (atlas, starts, relx, rely, ok), pair
 
 
-def phase_variants(dev, scene, root, n_default: int,
-                   seconds_default: float, kres: dict) -> dict:
-    """Phase 13 (c-f): the protocol on the variants' paths, every switch
-    restored after each run. (c) The gamma pyramid, full protocol,
-    default configuration: only the float32 K1 and K2 launch; phase 5's
-    bars. Then at expand_iters=1, beside a default run at that depth:
-    (d) gamma with USE_FAN_V2 = False (float32 K3) and with USE_FAN =
-    False (float32 K4); (e) _USE_BLOCK_SAMPLING = False with USE_FAN =
-    False on the byte and the gamma pyramid (the unblocked K2 and K4);
+def phase_variants(dev, scene, root, kres: dict) -> dict:
+    """Phase 13 (c-f): the protocol on the variants' paths at
+    expand_iters=1, every switch restored after each run, beside a
+    default run at that depth: (c) the gamma pyramid, default
+    configuration: only the float32 K1 and K2 launch, its files read
+    back; (d) gamma with USE_FAN_V2 = False (float32 K3) and with
+    USE_FAN = False (float32 K4); (e) _USE_BLOCK_SAMPLING = False with
+    USE_FAN = False on the byte and the gamma pyramid (the unblocked K2
+    and K4);
     (f) SAMPLING = "bicubic": no K1-K4 launch, the cloud stays on the
-    card. The runs at depth 1 are held to phase 5's accuracy bars and to
-    at least half the default run's count, and write no files. The scene
+    card. The runs are held to phase 5's accuracy bars and to at least
+    half the default run's count; all but (c) write no files. The scene
     is loaded once for all of them (its load is not in their seconds).
     Each run's launches of its instantiations are replayed for their
     protocol ms (into `kres`, from the run that VARIANT_ROWS names for
@@ -1776,14 +1873,13 @@ def phase_variants(dev, scene, root, n_default: int,
     scenes = loaded_scenes(root, dev)
 
     def go(label, flags, need, texture_flags=None, gamma=False,
-           expand_iters=1, min_patches=0):
+           min_patches=0, outputs=False):
         r = phase_protocol(dev, scene, root, label, flags, need=need,
                            absent=tuple(k for k in names if k not in need),
                            texture_flags=texture_flags,
                            loaded=scenes["gamma" if gamma else "byte"],
-                           expand_iters=expand_iters,
-                           min_patches=min_patches,
-                           outputs=expand_iters == 3)
+                           expand_iters=1, min_patches=min_patches,
+                           outputs=outputs)
         runs[label] = r["launches"]
         calls = r.pop("calls")      # the captured tensors: freed here
         for name in need:
@@ -1793,14 +1889,13 @@ def phase_variants(dev, scene, root, n_default: int,
         return r
 
     t0 = time.time()
-    g = go("gamma", {}, ("incc_fan_f32", "windows_f32"), gamma=True,
-           expand_iters=3, min_patches=80_000)
-    log(f"protocol[gamma]: {g['n']} patches, {g['n'] / n_default:.4f} of "
-        f"phase 5's {n_default}; {g['seconds']:.2f} s (the scene loaded "
-        f"beforehand) against phase 5's {seconds_default:.2f} s (with its "
-        f"load)")
     d1 = go("default_1", {}, ("incc_fan", "windows"))
     floor = d1["n"] // 2
+    g = go("gamma", {}, ("incc_fan_f32", "windows_f32"), gamma=True,
+           min_patches=floor, outputs=True)
+    log(f"protocol[gamma]: {g['n']} patches, {g['n'] / d1['n']:.4f} of "
+        f"default_1's {d1['n']}; {g['seconds']:.2f} s against "
+        f"default_1's {d1['seconds']:.2f} s (both on the loaded scene)")
     depth1 = [
         go("gamma_fan_v1", {"USE_FAN_V2": False},
            ("incc_fan_v1_f32", "windows_f32"), gamma=True,
@@ -1833,6 +1928,7 @@ def phase_drivers(dev) -> dict:
     scripts) on the card, every kernel counter zeroed just before and
     read just after; K1, K2 and K3 must launch. Each driver's result is
     logged on a line of its own; any failure raises."""
+    import dataclasses
     import torch
     from cmvs_pmvs_tpu_torch.scripts import (ab_broyden, bench_fan2,
                                              profile_e2e, profile_wave,
@@ -1864,13 +1960,18 @@ def phase_drivers(dev) -> dict:
             f"{wv['k1_device_ops_per_wave']} device ops, "
             f"{wv['k1_launches_per_wave']} launches a wave")
 
+    # the full protocol's scene cut to one expand round (the first
+    # spans, the ones profiled, are the full run's; phase 17 runs
+    # run_full's stages at full depth), profiled at one wave
+    depth1 = dataclasses.replace(profile_e2e.FULL, expand_iters=1)
+    wave1 = dataclasses.replace(depth1, max_waves=1)
     t0 = time.time()
     root = os.path.join(ROOT, "build", "chip_smoke_profile")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     try:
-        profile_e2e.write_tree(root, profile_e2e.FULL)
-        pe = profile_e2e.profile(root, profile_e2e.FULL, dev,
+        profile_e2e.write_tree(root, wave1)
+        pe = profile_e2e.profile(root, wave1, dev,
                                  profile_phases=("seed", "expand",
                                                  "filter"))
     finally:
@@ -1878,7 +1979,9 @@ def phase_drivers(dev) -> dict:
     log(profile_e2e.report(pe, top=25))
     shares = {ph: round(sm["busy_share"], 4)
               for ph, sm in pe["profile"].items()}
-    log(f"drivers: profile_e2e --full --profile-phase seed expand filter: "
+    log(f"drivers: profile_e2e --full (expand_iters 1, max_waves 1) "
+        f"--profile-phase "
+        f"seed expand filter: "
         f"{pe['patches']} patches, busy shares {shares} "
         f"({time.time() - t0:.2f} s)")
     if not all(sm["device_ops"] > 0 for sm in pe["profile"].values()):
@@ -1887,7 +1990,7 @@ def phase_drivers(dev) -> dict:
     del pe
 
     t0 = time.time()
-    rf = run_full.run(profile_e2e.FULL, dev, log=log)
+    rf = run_full.run(depth1, dev, log=log)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "run_full.json"), "w") as f:
         f.write(json.dumps(rf) + "\n")
@@ -2146,8 +2249,13 @@ def phase_graphed_protocol(dev, scene, phase5_files: str, n_default: int,
 
 
 def phase_graph_costs(dev, scene) -> dict:
-    """Phase 15c: both paths' launch calls by phase under the profiler,
-    their steady wall over three runs each and their peak memory."""
+    """Phase 15c: both paths' launch calls by phase under the profiler
+    (at expand_iters=1, max_waves=1: the profiler's cost per launch makes
+    a whole eager run's profile the slowest step of the script), the steady
+    wall of one full run of each kind, eager,
+    graphed on a fresh cache and on that cache kept, and its peak
+    memory; then the kept cache's run profiled."""
+    import dataclasses
     import torch
     from cmvs_pmvs_tpu_torch.models.engine import PMVSEngine, load_scene
     from cmvs_pmvs_tpu_torch.models.graphs import RefineGraphs
@@ -2155,11 +2263,13 @@ def phase_graph_costs(dev, scene) -> dict:
     from cmvs_pmvs_tpu_torch.utils.options import PMVSOptions
     _, root = write_scene("chip_smoke_graph_costs", scene)
     out = {"calls": {}, "steady": {}}
+    depth1 = dataclasses.replace(profile_e2e.FULL, expand_iters=1,
+                                 max_waves=1)
     for label, graphs in (("eager", lambda: False),
                           ("graphs", lambda: RefineGraphs(dev))):
         t0 = time.time()
-        pe = profile_e2e.profile(root, profile_e2e.FULL, dev,
-                                 profile_phases=("run",), graphs=graphs())
+        pe = profile_e2e.profile(root, depth1, dev, profile_phases=("run",),
+                                 graphs=graphs())
         spans = pe["profile"]["run"]["spans"]
         calls = {ph: (spans[ph]["launch_calls"], spans[ph]["graph_launches"])
                  for ph in ("seed", "expand", "filter")}
@@ -2169,8 +2279,9 @@ def phase_graph_costs(dev, scene) -> dict:
                                        whole["graph_launches"]),
                                "busy_share": whole["busy_share"],
                                "graphs": pe["graphs"]}
-        log(f"graph_costs[{label}] profiled run: launch calls (of them "
-            f"graph replays) by phase {calls}, whole run "
+        log(f"graph_costs[{label}] profiled run at expand_iters=1, "
+            f"max_waves=1: launch "
+            f"calls (of them graph replays) by phase {calls}, whole run "
             f"{whole['launch_calls']} ({whole['graph_launches']}), busy "
             f"{whole['busy_share']:.4f}, {pe['patches']} patches, graphs "
             f"{pe['graphs']} ({time.time() - t0:.2f} s)")
@@ -2178,13 +2289,40 @@ def phase_graph_costs(dev, scene) -> dict:
     opt = PMVSOptions.parse(os.path.join(root, "option.txt"))
     data = load_scene(root, opt, device=dev)
     kept = RefineGraphs(dev)
-    # phase 16(c): a run with the kept cache profiled, after one that
-    # fills it; its expand and filter rounds under sync debug "error"
+
+    def steady(label, graphs, strict=False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
+                         device=dev, graphs=graphs)
+        if strict:
+            strict_rounds(eng)
+        eng.run(**PROTOCOL_RUN)
+        torch.cuda.synchronize()
+        r = {"seconds": time.perf_counter() - t0,
+             "n": int(eng.cloud.count()),
+             "peak": torch.cuda.max_memory_allocated() / 1e9,
+             "reserved": torch.cuda.max_memory_reserved() / 1e9,
+             "phases": {k: round(v.seconds, 3) for k, v in
+                        eng.tracer.spans.items()},
+             "host_reads": eng.host_reads,
+             "graphs": eng.graphs.stats() if eng.graphs else None}
+        out["steady"][label] = [r]
+        log(f"graph_costs[{label}] steady run: {r['seconds']:.3f} s, "
+            f"{r['n']} patches, peak device memory {r['peak']:.2f} GB "
+            f"(reserved {r['reserved']:.2f} GB, the allocator's cache from "
+            f"before the run included: a replay's temporaries live in its "
+            f"graph's pool, reserved but not allocated), phases "
+            f"{r['phases']}, host reads {r['host_reads']}, graphs "
+            f"{r['graphs']}")
+
+    steady("eager", False)
+    # the fresh cache's run fills the cache that the kept runs replay
+    steady("graphs", kept)
+    # phase 16(c): the kept cache's run profiled, its expand and filter
+    # rounds under sync debug "error"
     t0 = time.time()
-    eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
-                     device=dev, graphs=kept)
-    eng.run(**PROTOCOL_RUN)
-    del eng
     with torch.profiler.profile(activities=profiling.activities()) as prof:
         eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
                          device=dev, graphs=kept)
@@ -2200,51 +2338,15 @@ def phase_graph_costs(dev, scene) -> dict:
                                    whole["graph_launches"]),
         "busy_share": whole["busy_share"], "graphs": kept.stats(),
         "host_reads": eng.host_reads}
-    log(f"graph_costs[graphs_kept] profiled run (the cache filled by one "
-        f"run before it; expand and filter rounds under sync debug "
-        f"'error'): launch calls (of them graph replays) by phase {calls}, "
-        f"whole run {whole['launch_calls']} ({whole['graph_launches']}), "
-        f"busy {whole['busy_share']:.4f}, {int(eng.cloud.count())} "
-        f"patches, host reads {eng.host_reads}, graphs {kept.stats()} "
-        f"({time.time() - t0:.2f} s)")
+    log(f"graph_costs[graphs_kept] profiled run (the cache filled by the "
+        f"fresh cache's steady run; expand and filter rounds under sync "
+        f"debug 'error'): launch calls (of them graph replays) by phase "
+        f"{calls}, whole run {whole['launch_calls']} "
+        f"({whole['graph_launches']}), busy {whole['busy_share']:.4f}, "
+        f"{int(eng.cloud.count())} patches, host reads {eng.host_reads}, "
+        f"graphs {kept.stats()} ({time.time() - t0:.2f} s)")
     del eng, prof, whole
-    for label, graphs in (("eager", lambda: False),
-                          ("graphs", lambda: RefineGraphs(dev)),
-                          ("graphs_kept", lambda: kept)):
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
-                             device=dev, graphs=graphs())
-            if label == "graphs_kept":
-                strict_rounds(eng)
-            eng.run(**PROTOCOL_RUN)
-            torch.cuda.synchronize()
-            runs.append({"seconds": time.perf_counter() - t0,
-                         "n": int(eng.cloud.count()),
-                         "peak": torch.cuda.max_memory_allocated() / 1e9,
-                         "reserved": torch.cuda.max_memory_reserved() / 1e9,
-                         "phases": {k: round(v.seconds, 3) for k, v in
-                                    eng.tracer.spans.items()},
-                         "host_reads": eng.host_reads,
-                         "graphs": eng.graphs.stats() if eng.graphs
-                         else None})
-            del eng
-        sec = [r["seconds"] for r in runs]
-        out["steady"][label] = runs
-        log(f"graph_costs[{label}] steady runs: seconds "
-            f"{[round(x, 3) for x in sec]} (spread {min(sec):.3f}-"
-            f"{max(sec):.3f}), patches {[r['n'] for r in runs]}, peak "
-            f"device memory {[round(r['peak'], 2) for r in runs]} GB "
-            f"(reserved {[round(r['reserved'], 2) for r in runs]} GB, "
-            f"the allocator's cache from before the run included: a "
-            f"replay's temporaries live in its graph's pool, reserved but "
-            f"not allocated), "
-            f"phases {[r['phases'] for r in runs]}, host reads "
-            f"{[r['host_reads'] for r in runs]}, graphs "
-            f"{[r['graphs'] for r in runs]}")
+    steady("graphs_kept", kept, strict=True)
     shutil.rmtree(root, ignore_errors=True)
     return out
 
@@ -2463,8 +2565,9 @@ def phase_program_replays(dev, eng) -> dict:
 
 
 def phase_graph_variants(dev, scene) -> dict:
-    """Phase 15d: at expand_iters=1, USE_FAN_V2 = False (K3), USE_FAN =
-    False (K4) and the gamma pyramid (float32 K1/K2), each eager and
+    """Phase 15d: at expand_iters=1, max_waves=2, USE_FAN_V2 = False
+    (K3), USE_FAN = False (K4) and the gamma pyramid (float32 K1/K2),
+    each eager and
     graphed: exactly its instantiations, the same counts on both paths,
     phase 5's accuracy bars. Returns each graphed run's launches."""
     import torch
@@ -2493,7 +2596,7 @@ def phase_graph_variants(dev, scene) -> dict:
                 eng = PMVSEngine(data, opt, p_cap=200_000,
                                  log=lambda m: None, device=dev,
                                  graphs=graphs)
-                eng.run(expand_iters=1, max_waves=12, refine_iters=8)
+                eng.run(expand_iters=1, max_waves=2, refine_iters=8)
                 torch.cuda.synchronize()
                 alive = eng.cloud.alive.cpu().numpy()
                 c = eng.cloud.coord.cpu().numpy()[alive][:, :3]
@@ -2642,16 +2745,16 @@ def record_keys(g, seen: dict):
 def phase_scenes(dev, scene) -> dict:
     """Phase 18: the CUDA graphs outlive a scene (models/graphs: keys by
     shape, one cache per device for the process, resident scene copies),
-    every kernel counter zeroed before and read after. (a) Two fresh-cache
-    runs of the seed-43 scene (private caches), then `reconstruct` on
+    every kernel counter zeroed before and read after. (a) A fresh-cache
+    run of the seed-43 scene (a private cache), then `reconstruct` on
     phase 5's scene and on the seed-43 scene on the process's cache: the
     second captures only the keys the first did not use (the buckets its
     waves alone reach) and replays every other (`reuse_failures`: at
     least 80% of its keys replayed, at most a quarter of the first's
     captures, each added key one of the first's but for bucket fields),
     copies each resident scene value in once and makes none, meets phase
-    5's bars, and its count lies within the fresh runs' spread (or,
-    outside it, within 0.1% of it, as 15(b) holds the graphed run to
+    5's bars, and its count equals the fresh run's (or lies within 0.1%
+    of it, as 15(b) holds the graphed run to
     phase 5); then a run on the cache kept captures nothing; seconds
     logged side by side. (b) Every chunk and program key of that kept
     run replayed from the process's cache (at least 80% of them captured
@@ -2723,8 +2826,10 @@ def phase_scenes(dev, scene) -> dict:
 
     try:
         # (a)
-        fresh = [run(f"fresh cache, seed 43 #{i}", root_b, scene_b,
-                     G.RefineGraphs(dev)) for i in (1, 2)]
+        # run counts repeat since the filter's sums became sequential:
+        # one fresh run is the spread
+        fresh = [run("fresh cache, seed 43", root_b, scene_b,
+                     G.RefineGraphs(dev))]
         torch.cuda.empty_cache()
         tick = cache.tick
         first = run("process cache, phase 5's scene", root_a, scene)
@@ -2941,6 +3046,58 @@ def phase_scenes(dev, scene) -> dict:
     return launches
 
 
+def phase_central_on_cache(dev, scene) -> dict:
+    """Repair 0(b): phase 5's central-difference protocol (USE_FAN =
+    False) through `reconstruct` on the process's graph cache as phase 18
+    left it (three scene signatures' graphs and resident values): phase
+    5's bars, K4 and K2 launched; the pool's reserved bytes before and
+    after, the peak and any drop logged. Returns the launches."""
+    import torch
+    from cmvs_pmvs_tpu_torch.models import graphs as G
+    from cmvs_pmvs_tpu_torch.models.engine import reconstruct
+    from cmvs_pmvs_tpu_torch.ops import refine
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    cache = G.shared(dev)
+    before, pool0 = cache.stats(), cache.pool_bytes() or 0
+    _, root = write_scene("chip_smoke_central_cached", scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    base = torch.cuda.memory_allocated(dev)
+    saved = refine.USE_FAN
+    t0 = time.perf_counter()
+    try:
+        refine.USE_FAN = False
+        eng = reconstruct(root, "option.txt", p_cap=200_000, device=dev,
+                          log=lambda m: None, **PROTOCOL_RUN)
+        torch.cuda.synchronize()
+    finally:
+        refine.USE_FAN = saved
+    seconds = time.perf_counter() - t0
+    r = protocol_result(scene, eng, root)
+    g = cache.stats_since(before)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"central_cached: {r['n']} patches, median {r['median']:.4f} q90 "
+        f"{r['q90']:.4f}, {seconds:.3f} s; the pool {pool0 / 1e9:.2f} -> "
+        f"{(cache.pool_bytes() or 0) / 1e9:.2f} GB reserved, "
+        f"{free0 / 1e9:.2f} GB free and {base / 1e9:.2f} GB allocated "
+        f"before; peak {peak / 1e9:.2f} GB allocated "
+        f"({(peak - base) / 1e9:.2f} GB above the start), "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved; graphs "
+        f"{g}; launches { {k: v for k, v in launches.items() if v} }")
+    del eng
+    shutil.rmtree(root, ignore_errors=True)
+    if not protocol_bars(r):
+        raise AssertionError(f"central_cached: phase 5's bars missed: {r}")
+    if launches["incc_blocks"] <= 0 or launches["windows"] <= 0:
+        raise AssertionError(f"central_cached: K4 or K2 did not launch: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -2978,8 +3135,8 @@ def main() -> int:
     runs = {}
     r = phase_protocol(dev, scene, root, "default", {},
                        need=("incc_fan", "windows"))
-    runs["default"], n_default, seconds_default = (r["launches"], r["n"],
-                                                   r["seconds"])
+    runs["default"], n_default = r["launches"], r["n"]
+    protocol5 = {k: r[k] for k in ("n", "launches", "stats")}
     # phase 15b holds the graphed path's outputs to these
     phase5_files = os.path.join(ROOT, "build", "chip_smoke_phase5")
     shutil.rmtree(phase5_files, ignore_errors=True)
@@ -2995,9 +3152,10 @@ def main() -> int:
     runs["fan_v1"] = r["launches"]
     k3[4].update(protocol_kernel_time("fan_v1", "incc_fan_v1",
                                       r["calls"]["incc_fan_v1"], other))
+    # repair 0(a): what the central LM's peak holds
     r = phase_protocol(dev, scene, root, "central", {"USE_FAN": False},
                        need=("incc_blocks", "windows"),
-                       absent=("incc_fan", "incc_fan_v1"))
+                       absent=("incc_fan", "incc_fan_v1"), memory=True)
     runs["central"] = r["launches"]
     k4.update(protocol_kernel_time("central", "incc_blocks",
                                    r["calls"]["incc_blocks"], other))
@@ -3006,20 +3164,19 @@ def main() -> int:
     runs["ablation"] = ablation["launches"]
     abl = ablation["results"]
     phase_cmvs_scale()
-    pipeline = phase_pipeline(dev)
+    pipeline = phase_pipeline(dev, scene)
     runs["pipeline"] = pipeline["launches"]
     # the ranks share the card: the process's graph cache (11b's clusters)
     # gives its memory back first
     from cmvs_pmvs_tpu_torch.models.graphs import shared
     shared(dev).clear()
-    runs.update(phase_multi_rank(dev, n_default, runs["default"], pipeline))
+    runs.update(phase_multi_rank(dev, scene, protocol5, pipeline))
     shutil.rmtree(pipeline["root"], ignore_errors=True)
     t0 = time.time()
     variants = phase_variant_kernels(dev)
     # phase 12b rewrote and removed phase 5's tree: the same scene again
     _, root = write_scene("chip_smoke_variants", scene)
-    runs.update(phase_variants(dev, scene, root, n_default, seconds_default,
-                               variants))
+    runs.update(phase_variants(dev, scene, root, variants))
     shutil.rmtree(root, ignore_errors=True)
     log(f"variants: phase 13 {time.time() - t0:.2f} s")
     runs["drivers"] = phase_drivers(dev)
@@ -3050,6 +3207,7 @@ def main() -> int:
     shared(dev).clear()
     runs["bench"] = phase_bench(dev, smi)
     runs["scenes"] = phase_scenes(dev, scene)
+    runs["central_cached"] = phase_central_on_cache(dev, scene)
     log(f"script: {time.time() - t_script:.2f} s in all")
 
     def row(name, source, replaces, run, res):

@@ -46,10 +46,11 @@ from ..ops.detect import detect_features
 from ..utils.options import PMVSOptions, build_visdata, read_bimages
 from ..utils.trace import Tracer
 from .config import EngineConfig, Thresholds
-from .expand import expand_commit, expand_discover
+from .expand import expand_commit, expand_discover, expand_discover_sharded
 from .filter import (MAX_PAIRS_PER_PASS, count_neighbor_pairs,
                      filter_neighbor_chunked, refresh_visibility,
-                     run_filters_post, run_filters_pre, run_filters_tail)
+                     refresh_visibility_sharded, run_filters_post,
+                     run_filters_pre, run_filters_sharded, run_filters_tail)
 from .graphs import RefineGraphs, allowed_sync, resolve as resolve_graphs
 from .grid import GridState, empty_grid
 from .patches import PatchCloud, compact_cloud, empty_cloud
@@ -153,9 +154,14 @@ class PMVSEngine:
                  device="cuda", mesh=None,
                  graphs: bool | RefineGraphs | None = None):
         """`mesh`: an engine mesh (parallel/engine_shard.make_engine_mesh)
-        shared by every rank of the process group; each rank then runs
-        its slice of every candidate batch and holds the whole state,
-        re-synchronised from rank 0 after every phase. `graphs`: run the
+        shared by every rank of the process group; each rank then holds
+        the whole state and computes its own rows of every phase that
+        decides row by row - the refine batches, seed and expand
+        discovery, the filters and the visibility refreshes - gathering
+        the others' (the commits, the dedupes, filterSmallGroups and the
+        compaction run replicated on the gathered state), and the ranks'
+        states are checked to agree after every phase. A mesh of one rank
+        runs the one-rank phases (no gathers, no checks). `graphs`: run the
         refine batches' chunks and the programs of the waves and the
         filter stage as CUDA graphs (models/graphs); True takes the
         process's cache for the device (graphs.shared), which replays
@@ -166,8 +172,9 @@ class PMVSEngine:
         measures a fresh cache)."""
         self.device = resolve_device(device)
         self.graphs = resolve_graphs(graphs, self.device)
-        self.mesh = mesh
-        if mesh is not None:
+        self.mesh = mesh if mesh is not None and mesh.shape[0] > 1 \
+            else None
+        if self.mesh is not None:
             from ..parallel.engine_shard import round_capacity
             p_cap = round_capacity(p_cap, mesh)
         self.scene = replace(scene, cams=tree_to(scene.cams, self.device),
@@ -251,11 +258,13 @@ class PMVSEngine:
         from ..parallel.engine_shard import agreed_max
         return agreed_max(self.mesh, n, self.device)
 
-    def _sync(self):
-        """Under a mesh, replace the cloud and grid by rank 0's."""
+    def _check_agreement(self, where: str):
+        """Under a mesh, raise on every rank unless the ranks hold the
+        same cloud and grid (parallel/engine_shard.check_agreement)."""
         if self.mesh is not None:
-            from ..parallel.engine_shard import sync_state
-            sync_state(self)
+            from ..parallel.engine_shard import check_agreement
+            check_agreement(self.mesh, where, cloud=self.cloud,
+                            grid=self.grid)
 
     # ---- the active prefix (reference engine.py:233-257) ----
     def _cap_bucket(self, need: int) -> int:
@@ -383,10 +392,16 @@ class PMVSEngine:
             cap_d = self._cap_bucket(n_alive)
             fbudget = _bucket15(f_n, cap_d)
             with tr.span("expand", block=True):
-                disc = expand_discover(cams, pyr, cfg, self.thr,
-                                       self._slice(cap_d), self.grid,
-                                       frontier[:cap_d], slack, fbudget,
-                                       graphs=self.graphs)
+                if self.mesh is None:
+                    disc = expand_discover(cams, pyr, cfg, self.thr,
+                                           self._slice(cap_d), self.grid,
+                                           frontier[:cap_d], slack, fbudget,
+                                           graphs=self.graphs)
+                else:
+                    disc = expand_discover_sharded(
+                        cams, pyr, cfg, self.thr, self._slice(cap_d),
+                        self.grid, frontier[:cap_d], slack, fbudget,
+                        self.mesh, graphs=self.graphs)
                 ncand, oflow_n = self._read(disc.ncand, disc.overflow.sum())
                 if ncand == 0:
                     frontier = self._widen(disc.overflow, self.p_cap)
@@ -411,7 +426,7 @@ class PMVSEngine:
                     graphs=self.graphs)
                 self._paste(cb, cap_b)
                 frontier = self._widen(fr, self.p_cap)
-                self._sync()
+                self._check_agreement(f"it{it} wave{wave}'s commit")
                 acc, vdrops, dropped, frn = self._read(
                     st.accepted, st.view_drops, st.dropped, fr.sum())
             total_new += acc
@@ -438,34 +453,20 @@ class PMVSEngine:
         stats; `stats` (the round's expand figures) is completed and kept
         in `self.stats`."""
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
-        g = self.graphs
         t3 = time.time()
         cap_b = self._cap_bucket(n_alive)
         with self.tracer.span("filter", block=True):
-            cb, grid, fstats = run_filters_pre(cams, pyr, cfg, self.thr,
-                                               self._slice(cap_b),
-                                               self.grid, graphs=g)
-            need = self._read(count_neighbor_pairs(cfg, cb, graphs=g))[0]
-            if need > MAX_PAIRS_PER_PASS:
-                n0 = cb.count()
-                cb, pdrop = filter_neighbor_chunked(
-                    cams, cfg, self.thr, cb, need, graphs=g,
-                    read=lambda v: self._read(v)[0])
-                fstats["neighbor"] = (n0, cb.count())
-                cb, grid, tail = run_filters_tail(cams, pyr, cfg, self.thr,
-                                                  cb, grid, graphs=g)
-                budget = "chunked exact budgets"
+            if self.mesh is None:
+                cb, grid, fstats, pdrop, budget = self._filters(cap_b)
             else:
-                pb = _bucket15(max(need, 1024), MAX_PAIRS_PER_PASS)
-                cb, grid, tail = run_filters_post(cams, pyr, cfg, self.thr,
-                                                  cb, grid, pb, graphs=g)
-                pdrop = tail.pop("pairs_dropped")[0]
-                budget = f"budget {pb}"
-            fstats.update(tail)
+                cb, grid, fstats, pdrop, budget = run_filters_sharded(
+                    cams, pyr, cfg, self.thr, self._slice(cap_b), self.grid,
+                    self.mesh, graphs=self.graphs,
+                    read=lambda v: self._read(v)[0])
             self.grid = grid
             self._paste(cb, cap_b)
             self._compact()
-            self._sync()
+            self._check_agreement(f"it{it}'s filters")
         vals = self._read(
             *[v for pair in fstats.values() for v in pair], pdrop,
             (self.grid.occ - cfg.cell_k).clamp(min=0).sum(),
@@ -486,6 +487,36 @@ class PMVSEngine:
                            **{k: (vals[2 * i], vals[2 * i + 1])
                               for i, k in enumerate(fstats)}})
 
+    def _filters(self, cap_b: int):
+        """The one-rank filter stage on the prefix `cap_b`: pre, one read
+        of the neighbour pair count, then post at a `_bucket15` pair
+        budget or, past MAX_PAIRS_PER_PASS pairs, the chunked neighbour
+        pass (a read per chunk) and tail. Returns (cloud, grid, stats,
+        pairs dropped, the budget's description)."""
+        cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
+        g = self.graphs
+        cb, grid, fstats = run_filters_pre(cams, pyr, cfg, self.thr,
+                                           self._slice(cap_b), self.grid,
+                                           graphs=g)
+        need = self._read(count_neighbor_pairs(cfg, cb, graphs=g))[0]
+        if need > MAX_PAIRS_PER_PASS:
+            n0 = cb.count()
+            cb, pdrop = filter_neighbor_chunked(
+                cams, cfg, self.thr, cb, need, graphs=g,
+                read=lambda v: self._read(v)[0])
+            fstats["neighbor"] = (n0, cb.count())
+            cb, grid, tail = run_filters_tail(cams, pyr, cfg, self.thr, cb,
+                                              grid, graphs=g)
+            budget = "chunked exact budgets"
+        else:
+            pb = _bucket15(max(need, 1024), MAX_PAIRS_PER_PASS)
+            cb, grid, tail = run_filters_post(cams, pyr, cfg, self.thr, cb,
+                                              grid, pb, graphs=g)
+            pdrop = tail.pop("pairs_dropped")[0]
+            budget = f"budget {pb}"
+        fstats.update(tail)
+        return cb, grid, fstats, pdrop, budget
+
     def _widen(self, mask, size: int):
         """A [size] bool mask holding `mask` in its prefix."""
         out = torch.zeros(size, dtype=torch.bool, device=self.device)
@@ -497,10 +528,16 @@ class PMVSEngine:
         alive rows (after the seed, and on resume)."""
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
         cap_b = self._cap_bucket(n_alive)
-        cb, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
-                                           self._slice(cap_b), self.grid)
+        if self.mesh is None:
+            cb, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
+                                               self._slice(cap_b),
+                                               self.grid)
+        else:
+            cb, self.grid = refresh_visibility_sharded(
+                cams, pyr, cfg, self.thr, self._slice(cap_b), self.grid,
+                self.mesh, graphs=self.graphs)
         self._paste(cb, cap_b)
-        self._sync()
+        self._check_agreement("the visibility refresh")
 
     # ---- checkpoint / resume: the reference package's npz layout ----
     def save_checkpoint(self, path: str, iteration: int = 0):
@@ -563,8 +600,9 @@ def reconstruct(prefix: str, option_name: str, p_cap: int = 200_000,
                 mesh=None, graphs: bool | RefineGraphs | None = None,
                 **run_kwargs) -> PMVSEngine:
     """pmvs3 entry: load, run, write models/<option> (pmvs.cpp:7-63).
-    With an engine `mesh` every rank of the group calls it; the ranks
-    end with rank 0's cloud, and rank 0 alone writes. `graphs` as in
+    With an engine `mesh` every rank of the group calls it; each rank
+    computes its own rows of every phase and the ranks end with the same
+    cloud (checked after every phase), which rank 0 alone writes. `graphs` as in
     PMVSEngine (None: the process's cache on the card, so a later call
     on a scene of the same shapes replays every key an earlier call
     captured; False: op by op). That cache keeps its graphs' memory pool

@@ -158,17 +158,32 @@ class DiscoverResult(NamedTuple):
     ncand: torch.Tensor     # [] int32, sval.sum()
 
 
-@program(scene=3, static=("slack", "fbudget"))
-def expand_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
-                    thr: Thresholds, cloud: PatchCloud, grid: GridState,
-                    frontier, slack: int, fbudget: int) -> DiscoverResult:
-    """Wave stage 1 (reference expand.py:194-281): the best `fbudget`
-    alive frontier rows by score2 (ties to the lower row, as lax.top_k),
-    sector discovery and every pre-refinement gate of expandSub
-    (expand.cpp:108-256), at F6 = fbudget * 6 rows. Frontier rows past
-    the budget come back in `overflow`; padding rows (a budget above the
-    frontier) have `sval` False. `slack` is checkCounts' leniency: 0 on
-    the first expand iteration, 1 after (expand.cpp:276)."""
+class DiscoverRows(NamedTuple):
+    """Discovery's per-candidate rows before the per-cell dedupe: `sval`
+    holds the gates up to checkCounts, `ckey` each candidate's (ref
+    image, cell) key (the sentinel where `sval` is False)."""
+
+    coord: torch.Tensor
+    normal: torch.Tensor
+    vmask: torch.Tensor
+    ref: torch.Tensor
+    parent: torch.Tensor
+    sector: torch.Tensor
+    sval: torch.Tensor
+    ckey: torch.Tensor
+
+
+def discover_rows(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
+                  thr: Thresholds, cloud: PatchCloud, grid: GridState,
+                  frontier, slack: int, fbudget: int, lo: int = 0,
+                  hi: int | None = None):
+    """Discovery up to the dedupe for frontier slots [lo, hi) of the best
+    `fbudget` alive frontier rows by score2 (ties to the lower row, as
+    lax.top_k): sector discovery and every gate of expandSub
+    (expand.cpp:108-256) but the per-cell dedupe, which spans the whole
+    batch. The selection itself is over the whole slice, so the rows
+    past the budget come back whole in `overflow`. Returns
+    (DiscoverRows of 6 * (hi - lo) rows, overflow [P])."""
     dev = cloud.coord.device
     p = cloud.capacity
     tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw, merged=True)
@@ -180,9 +195,9 @@ def expand_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     taken = torch.zeros(p, dtype=torch.bool, device=dev)
     taken.scatter_(0, fsel, fok)
     overflow = live & ~taken
+    fsel, fok = fsel[lo:hi], fok[lo:hi]
 
     cand, cok = find_empty_blocks(cams, cfg, thr, cloud, tab, fsel, fok)
-    f6 = fsel.shape[0] * 6
     sval = cok.reshape(-1)
     coord = cand.reshape(-1, 4)
     parent = fsel.repeat_interleave(6)
@@ -207,32 +222,91 @@ def expand_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     empty = (tgt & ~busy).sum(1)
     sval = sval & ~((empty < cfg.min_image_num - slack) & (full != 0))
 
-    # dedupe: one candidate per (ref image, cell) per wave; rows are
-    # best-first, so the lowest row per cell wins
     ref = pimgs[:, 0].clamp(min=0)
     rix, riy = cell_of(cams, cfg.level, cfg.csize, coord, ref)
     sentinel = cfg.tn * cfg.gh * cfg.gw
     ckey = (ref.long() * cfg.gh + riy.long().clamp(0, cfg.gh - 1)) * cfg.gw \
         + rix.long().clamp(0, cfg.gw - 1)
     ckey = torch.where(sval, ckey, torch.full_like(ckey, sentinel))
-    rows = torch.arange(f6, device=dev)
-    firstmap = torch.full((sentinel + 1,), f6, dtype=torch.int64,
-                          device=dev)
-    firstmap.scatter_reduce_(0, ckey, rows, "amin")
-    sval = sval & (firstmap[ckey] == rows)
 
     normal = cloud.normal[parent]
-    vmask = torch.zeros((f6, cfg.n), dtype=torch.uint8, device=dev)
+    vmask = torch.zeros((coord.shape[0], cfg.n), dtype=torch.uint8,
+                        device=dev)
     vmask.scatter_reduce_(1, pimgs.clamp(min=0).long(),
                           pval.to(torch.uint8), "amax")
     vmask = V.remove_images_edge(pyr, cams, cfg.level, coord, vmask.bool())
-    sval = sval & vmask.any(1)
-    return DiscoverResult(coord=coord, normal=normal, vmask=vmask, ref=ref,
-                          parent=parent, sector=sector, sval=sval,
-                          overflow=overflow,
+    return DiscoverRows(coord=coord, normal=normal, vmask=vmask, ref=ref,
+                        parent=parent, sector=sector, sval=sval,
+                        ckey=ckey), overflow
+
+
+def discover_dedupe(cfg: EngineConfig, rows: DiscoverRows, overflow
+                    ) -> DiscoverResult:
+    """One candidate per (ref image, cell) per wave over the whole
+    batch: rows are best-first, so the lowest row per cell wins; then the
+    candidates left with no view after the edge test go."""
+    f6 = rows.sval.shape[0]
+    dev = rows.sval.device
+    sentinel = cfg.tn * cfg.gh * cfg.gw
+    idx = torch.arange(f6, device=dev)
+    firstmap = torch.full((sentinel + 1,), f6, dtype=torch.int64,
+                          device=dev)
+    firstmap.scatter_reduce_(0, rows.ckey, idx, "amin")
+    sval = rows.sval & (firstmap[rows.ckey] == idx)
+    sval = sval & rows.vmask.any(1)
+    return DiscoverResult(coord=rows.coord, normal=rows.normal,
+                          vmask=rows.vmask, ref=rows.ref,
+                          parent=rows.parent, sector=rows.sector,
+                          sval=sval, overflow=overflow,
                           ncand=sval.sum().to(torch.int32))
 
 
+@program(scene=3, static=("slack", "fbudget"))
+def expand_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
+                    thr: Thresholds, cloud: PatchCloud, grid: GridState,
+                    frontier, slack: int, fbudget: int) -> DiscoverResult:
+    """Wave stage 1 (reference expand.py:194-281): the best `fbudget`
+    alive frontier rows by score2, sector discovery and every
+    pre-refinement gate of expandSub (expand.cpp:108-256), at F6 =
+    fbudget * 6 rows (`discover_rows`), then the per-cell dedupe
+    (`discover_dedupe`). Frontier rows past the budget come back in
+    `overflow`; padding rows (a budget above the frontier) have `sval`
+    False. `slack` is checkCounts' leniency: 0 on the first expand
+    iteration, 1 after (expand.cpp:276)."""
+    rows, overflow = discover_rows(cams, pyr, cfg, thr, cloud, grid,
+                                   frontier, slack, fbudget)
+    return discover_dedupe(cfg, rows, overflow)
+
+
+@program(scene=3, static=("slack", "fbudget", "lo", "hi"))
+def _discover_rows(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
+                   thr: Thresholds, cloud: PatchCloud, grid: GridState,
+                   frontier, slack: int, fbudget: int, lo: int, hi: int):
+    return discover_rows(cams, pyr, cfg, thr, cloud, grid, frontier, slack,
+                         fbudget, lo, hi)
+
+
+@program(scene=1)
+def _discover_dedupe(cfg: EngineConfig, rows: DiscoverRows, overflow):
+    return discover_dedupe(cfg, rows, overflow)
+
+
+def expand_discover_sharded(cams: CameraSet, pyr: PyramidSet,
+                            cfg: EngineConfig, thr: Thresholds,
+                            cloud: PatchCloud, grid: GridState, frontier,
+                            slack: int, fbudget: int, mesh, graphs=None
+                            ) -> DiscoverResult:
+    """expand_discover under an engine mesh (parallel/engine_shard),
+    equal to it bit for bit: each rank discovers and gates the candidates
+    of its slice of the frontier budget's slots, one all-gather gives
+    every rank the whole batch, and the dedupe runs replicated on it."""
+    from ..parallel.engine_shard import gather_rows, own_rows
+    lo, hi = own_rows(mesh, fbudget)
+    part, overflow = _discover_rows(cams, pyr, cfg, thr, cloud, grid,
+                                    frontier, slack, fbudget, lo, hi,
+                                    graphs=graphs)
+    rows = DiscoverRows(*gather_rows(mesh, list(part)))
+    return _discover_dedupe(cfg, rows, overflow, graphs=graphs)
 
 
 def _bump(grid: GridState, cfg: EngineConfig, thr: Thresholds, images,

@@ -9,6 +9,14 @@ as the reference package's static-shape programs (models/graphs):
 scalar the host reads), then `run_filters_post` at a pair budget
 (neighbour, groups) or, past MAX_PAIRS_PER_PASS pairs, the neighbour
 pass in row chunks (`filter_neighbor_chunked`) and `run_filters_tail`.
+
+Under an engine mesh (parallel/engine_shard) `run_filters_sharded` runs
+the stage with each rank deciding its own rows of filterOutside,
+filterExact and filterNeighbor against the whole replicated cloud, cell
+tables and grid, and every visibility refresh sharded the same way
+(`refresh_visibility_sharded`: occupancy by a SUM, the depth maps by
+two MIN all-reduces); filterSmallGroups' label propagation spans the
+whole neighbour graph, so it stays replicated on the gathered cloud.
 """
 from __future__ import annotations
 
@@ -21,9 +29,10 @@ from .config import EngineConfig, Thresholds
 from .expand import OFFS9, _ortho, compute_radius, patch_unit, window_keys
 from .graphs import allowed_sync, program
 from .grid import (CellTable, GridState, build_cell_table,
-                   count_window_pairs, is_neighbor_comp, is_neighbor_idx,
-                   is_visible, rebuild_depth_maps, rebuild_occupancy,
-                   window_pairs)
+                   count_occupancy, count_window_pairs, depth_keys,
+                   depth_maps, depth_min, depth_ties, is_neighbor_comp,
+                   is_neighbor_idx, is_visible, rebuild_depth_maps,
+                   rebuild_occupancy, window_pairs)
 from .patches import PatchCloud
 from .process import set_vimages
 from . import views as V
@@ -40,12 +49,13 @@ PROP_ITERS = 24
 OFFS25 = [(ox, oy) for oy in range(-2, 3) for ox in range(-2, 3)]
 
 
-def _pair_hunit(cams, cfg, cloud, q):
+def _pair_hunit(cams, cfg, cloud, q, lo: int = 0, hi: int | None = None):
     """hunit for the 2-arg isNeighbor: mean of both patches' reference
-    1-px units x csize (findMatch.cpp:120-123). q [P, M]."""
+    1-px units x csize (findMatch.cpp:120-123), for query rows [lo, hi)
+    of `cloud` against its rows q [hi - lo, M]."""
     unit = get_unit(cams, cloud.images[:, 0].clamp(min=0).long(),
                     cloud.coord, cfg.level)
-    return (unit[:, None] + unit[q]) / 2.0 * cfg.csize
+    return (unit[lo:hi, None] + unit[q]) / 2.0 * cfg.csize
 
 
 def _cell_lookup(cfg, tab: CellTable, images, grids):
@@ -85,25 +95,32 @@ def _solve5x5_spd(A, b):
     return torch.stack(x, dim=-1)
 
 
-def filter_outside(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
-                   cloud: PatchCloud, grid: GridState) -> PatchCloud:
-    """Kill patches whose gain (score2 minus the pressure of non-neighbour
-    co-cell patches) is negative (filter.cpp:29-201)."""
-    p = cloud.capacity
+def _rows_of(cloud: PatchCloud, lo: int, hi: int | None) -> PatchCloud:
+    """Rows [lo, hi) of `cloud` (views)."""
+    return cloud.map(lambda a: a[lo:hi])
+
+
+def outside_alive(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
+                  cloud: PatchCloud, lo: int = 0, hi: int | None = None):
+    """filterOutside's verdict for rows [lo, hi) of `cloud` against its
+    whole cell table: their new `alive`."""
     kk = cfg.cell_k
     tab = build_cell_table(cloud, cfg.tn, cfg.gh, cfg.gw)
-    rows = torch.arange(p, device=cloud.coord.device)[:, None]
+    part = _rows_of(cloud, lo, hi)
+    p = part.capacity
+    rows = torch.arange(lo, lo + p, device=cloud.coord.device)[:, None]
 
     def pressure(images, grids, depth_gate):
         q, hit = _cell_lookup(cfg, tab, images, grids)      # [P, T*K]
         neigh = is_neighbor_idx(cloud.coord, cloud.normal, cloud.dscale,
-                                rows, q, _pair_hunit(cams, cfg, cloud, q),
+                                rows, q,
+                                _pair_hunit(cams, cfg, cloud, q, lo, hi),
                                 thr.neighbor1)
         m = hit & ~neigh & (q != rows) & cloud.alive[q]
         if depth_gate:
             # only co-cell patches behind this one press (filter.cpp:117-144)
             ax = cams.oaxis[images.clamp(min=0).long()]          # [P, T, 4]
-            pdepth = (ax * cloud.coord[:, None, :]).sum(-1)
+            pdepth = (ax * part.coord[:, None, :]).sum(-1)
             qc = cloud.coord[q].reshape(p, -1, kk, 4)
             bdepth = (ax[:, :, None, :3] * qc[..., :3]).sum(-1) \
                 + ax[:, :, None, 3]
@@ -114,37 +131,45 @@ def filter_outside(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
         slot_ok = (images >= 0) & (images < cfg.tn)
         return torch.where(slot_ok, pmax, torch.zeros_like(pmax)).sum(-1)
 
-    gain = cloud.score2(thr.ncc) - pressure(cloud.images, cloud.grids,
-                                            False)
-    gain = gain - pressure(cloud.vimages, cloud.vgrids, True)
-    return replace(cloud, alive=cloud.alive & ~(gain < 0.0))
+    gain = part.score2(thr.ncc) - pressure(part.images, part.grids, False)
+    gain = gain - pressure(part.vimages, part.vgrids, True)
+    return part.alive & ~(gain < 0.0)
 
 
-def filter_exact(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
-                 cloud: PatchCloud, grid: GridState) -> PatchCloud:
-    """Per-image visibility re-check in the image's cell or a 4-neighbour
-    cell; patches under min_image_num die and the reference is re-picked
-    by minimum summed pairwise INCC (filter.cpp:203-355)."""
-    imgs = cloud.images
+def filter_outside(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
+                   cloud: PatchCloud, grid: GridState) -> PatchCloud:
+    """Kill patches whose gain (score2 minus the pressure of non-neighbour
+    co-cell patches) is negative (filter.cpp:29-201)."""
+    return replace(cloud, alive=outside_alive(cams, cfg, thr, cloud))
+
+
+def exact_rows(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
+               cloud: PatchCloud, grid: GridState, lo: int = 0,
+               hi: int | None = None):
+    """filterExact for rows [lo, hi) of `cloud` against the whole grid
+    and cloud: their new (images, grids, timages, alive); the reference
+    re-pick (`set_ref_image`, K2 on the card) runs on these rows only."""
+    part = _rows_of(cloud, lo, hi)
+    imgs = part.images
     ok_slot = (imgs >= 0) & (imgs < cfg.tn)
     safe = torch.zeros_like(ok_slot)
     for ox, oy in ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)):
         safe = safe | is_visible(
             cams, cloud, grid, cfg.level, cfg.csize,
-            cloud.coord[:, None, :], cloud.normal[:, None, :],
-            imgs.clamp(min=0), cloud.grids[..., 0] + ox,
-            cloud.grids[..., 1] + oy, thr.neighbor1)
+            part.coord[:, None, :], part.normal[:, None, :],
+            imgs.clamp(min=0), part.grids[..., 0] + ox,
+            part.grids[..., 1] + oy, thr.neighbor1)
     keep_slot = torch.where(ok_slot, safe, imgs >= 0)  # non-targets stay
     new_imgs = torch.where(keep_slot, imgs, torch.full_like(imgs, -1))
     tcount = (keep_slot & ok_slot).sum(1)
-    alive = cloud.alive & ((tcount + ((imgs >= cfg.tn) & keep_slot).sum(1))
-                           >= cfg.min_image_num) & (tcount > 0)
+    alive = part.alive & ((tcount + ((imgs >= cfg.tn) & keep_slot).sum(1))
+                          >= cfg.min_image_num) & (tcount > 0)
     # surviving target slots first
     rank = torch.where(keep_slot & ok_slot, 0, torch.where(keep_slot, 1, 2))
     order = torch.argsort(rank, dim=1, stable=True)
     new_imgs = torch.gather(new_imgs, 1, order)
-    new_grids = torch.gather(cloud.grids, 1, order[..., None].expand(
-        cloud.grids.shape))
+    new_grids = torch.gather(part.grids, 1, order[..., None].expand(
+        part.grids.shape))
 
     pcap = new_imgs.shape[0]
     vmask = torch.zeros((pcap, cfg.n), dtype=torch.uint8,
@@ -152,7 +177,7 @@ def filter_exact(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
     vmask.scatter_reduce_(1, new_imgs.clamp(min=0).long(),
                           (new_imgs >= 0).to(torch.uint8), "amax")
     new_ref, ref_ok = V.set_ref_image(cams, pyr, cfg.level, cfg.wsize,
-                                      cfg.tn, cloud.coord, cloud.normal,
+                                      cfg.tn, part.coord, part.normal,
                                       new_imgs[:, 0].clamp(min=0),
                                       vmask.bool())
     # swap the chosen reference into slot 0
@@ -166,8 +191,18 @@ def filter_exact(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
     new_imgs[:, 0] = torch.where(do, sw_img, s0_img)
     new_grids[rows, slot] = torch.where(do[:, None], s0_grid, sw_grid)
     new_grids[:, 0] = torch.where(do[:, None], sw_grid, s0_grid)
-    return replace(cloud, images=new_imgs, grids=new_grids,
-                   timages=tcount.to(torch.int32), alive=alive)
+    return new_imgs, new_grids, tcount.to(torch.int32), alive
+
+
+def filter_exact(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
+                 cloud: PatchCloud, grid: GridState) -> PatchCloud:
+    """Per-image visibility re-check in the image's cell or a 4-neighbour
+    cell; patches under min_image_num die and the reference is re-picked
+    by minimum summed pairwise INCC (filter.cpp:203-355)."""
+    images, grids, timages, alive = exact_rows(cams, pyr, cfg, thr, cloud,
+                                               grid)
+    return replace(cloud, images=images, grids=grids, timages=timages,
+                   alive=alive)
 
 
 def _neighbor_query_keys(cfg, cloud: PatchCloud, sentinel: int):
@@ -381,7 +416,10 @@ def run_filters_pre(cams: CameraSet, pyr, cfg: EngineConfig,
     """Filter stage part 1 (reference filter.py:512-529): filterOutside
     and filterExact with their visibility rebuilds (CFilter::run,
     filter.cpp:13-21). Returns (cloud, grid, stats), stats[name] =
-    (count before, count after) as device scalars."""
+    (count before, count after) as device scalars. run_filters_sharded
+    runs this stage's passes again, in the same order, under a mesh: a
+    change to the order here or in run_filters_post / run_filters_tail
+    goes there too."""
     stats = {}
     cloud, grid = refresh_visibility(cams, pyr, cfg, thr, cloud, grid)
     for name, fn in (("outside", lambda c, g: filter_outside(
@@ -434,28 +472,30 @@ def filter_neighbor_rows(cams: CameraSet, cfg: EngineConfig,
                                  cloud, tab, pair_budget)
 
 
-def filter_neighbor_chunked(cams: CameraSet, cfg: EngineConfig,
-                            thr: Thresholds, cloud: PatchCloud,
-                            total_pairs: int,
-                            max_pairs: int = MAX_PAIRS_PER_PASS,
-                            graphs=None, read=None):
-    """filterNeighbor in row chunks of about half `max_pairs` pairs each
-    (reference filter.py:569-609): each chunk's pairs are counted (a host
-    read, through `read(scalar) -> int` where given), a chunk past
+def neighbor_chunks(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
+                    cloud: PatchCloud, total_pairs: int, lo: int = 0,
+                    hi: int | None = None,
+                    max_pairs: int = MAX_PAIRS_PER_PASS, graphs=None,
+                    read=None):
+    """filterNeighbor verdicts for query rows [lo, hi) in row chunks of
+    about half `max_pairs` pairs each, `total_pairs` the pairs of those
+    rows (reference filter.py:569-609): each chunk's pairs are counted (a
+    host read, through `read(scalar) -> int` where given), a chunk past
     `max_pairs` is halved and retried, and its rows run at their own
-    `_bucket15` budget. Verdicts are per patch, so the result equals the
-    single pass's. Returns (cloud, dropped pairs, a device scalar)."""
+    `_bucket15` budget. Verdicts are per patch, so they equal the single
+    pass's. Returns (reject [hi - lo], dropped pairs, a device scalar)."""
     from .engine import _bucket15
-    p = cloud.capacity
+    hi = cloud.capacity if hi is None else hi
+    span = hi - lo
     dev = cloud.coord.device
     nchunk = max(2, -(-total_pairs // max(max_pairs // 2, 1)))
-    pc0 = min(p, _bucket15(-(-p // nchunk), p))
+    pc0 = min(span, _bucket15(-(-span // nchunk), span))
     pc = pc0
-    reject = torch.zeros(p, dtype=torch.bool, device=dev)
+    reject = torch.zeros(span, dtype=torch.bool, device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    row0 = 0
-    while row0 < p:
-        start = min(row0, p - pc)
+    row0 = lo
+    while row0 < hi:
+        start = min(row0, hi - pc)
         start_t = torch.full((), start, dtype=torch.int64, device=dev)
         cnt = count_neighbor_pairs_rows(cfg, cloud, start_t, pc,
                                         graphs=graphs)
@@ -466,16 +506,29 @@ def filter_neighbor_chunked(cams: CameraSet, cfg: EngineConfig,
                 cnt = int(cnt)
         if cnt > max_pairs and pc > 1024:
             # a dense region: halve the span and retry
-            pc = max(1024, _bucket15(pc // 2, p))
+            pc = max(1024, _bucket15(pc // 2, span))
             continue
         pb = _bucket15(max(cnt, 1024), 1 << 62)
         rej, dr = filter_neighbor_rows(cams, cfg, thr, cloud, start_t, pc,
                                        pb, graphs=graphs)
-        reject[start:start + pc] = rej
+        reject[start - lo:start - lo + pc] = rej
         dropped = dropped + dr
         row0 = start + pc
         # grow back toward the target span after a dense region
-        pc = min(pc0, _bucket15(pc * 2, p)) if pc < pc0 else pc0
+        pc = min(pc0, _bucket15(pc * 2, span)) if pc < pc0 else pc0
+    return reject, dropped
+
+
+def filter_neighbor_chunked(cams: CameraSet, cfg: EngineConfig,
+                            thr: Thresholds, cloud: PatchCloud,
+                            total_pairs: int,
+                            max_pairs: int = MAX_PAIRS_PER_PASS,
+                            graphs=None, read=None):
+    """filterNeighbor over every row in chunks (`neighbor_chunks`).
+    Returns (cloud, dropped pairs, a device scalar)."""
+    reject, dropped = neighbor_chunks(cams, cfg, thr, cloud, total_pairs,
+                                      max_pairs=max_pairs, graphs=graphs,
+                                      read=read)
     return replace(cloud, alive=cloud.alive & ~reject), dropped
 
 
@@ -540,3 +593,168 @@ def run_filters(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
                                          pair_budget, graphs=graphs)
     stats.update(post)
     return cloud, grid, stats
+
+
+# ---- the stage under an engine mesh (parallel/engine_shard): each rank
+# computes its own rows [lo, hi) of every per-row pass against the whole
+# replicated cloud and grid; the depth and occupancy maps are MIN / SUM
+# all-reduces of the ranks' partial maps, the per-row results one packed
+# all-gather. The per-rank parts are programs (CUDA graphs keyed by the
+# row range); the collectives run eagerly between them.
+
+@program(scene=2, static=("lo", "hi"))
+def _visibility_min(cams: CameraSet, cfg: EngineConfig, cloud: PatchCloud,
+                    lo: int, hi: int):
+    """Rows [lo, hi)'s pgrids counts and least depth per flat cell."""
+    part = _rows_of(cloud, lo, hi)
+    keys, depth, _ = depth_keys(cams, part.coord, part.alive, lo, cfg.level,
+                                cfg.csize, cfg.tn, cfg.gh, cfg.gw)
+    return (count_occupancy(part.images, part.grids, part.alive, cfg.tn,
+                            cfg.gh, cfg.gw),
+            depth_min(keys, depth, cfg.tn * cfg.gh * cfg.gw))
+
+
+@program(scene=2, static=("lo", "hi"))
+def _visibility_ties(cams: CameraSet, cfg: EngineConfig, cloud: PatchCloud,
+                     flat_d, lo: int, hi: int):
+    """Rows [lo, hi)'s least global row index per flat cell at the
+    reduced least depth `flat_d`."""
+    part = _rows_of(cloud, lo, hi)
+    keys, depth, pid = depth_keys(cams, part.coord, part.alive, lo,
+                                  cfg.level, cfg.csize, cfg.tn, cfg.gh,
+                                  cfg.gw)
+    return depth_ties(keys, depth, pid, flat_d, cfg.tn * cfg.gh * cfg.gw)
+
+
+@program(scene=3, static=("lo", "hi"))
+def _visibility_views(cams: CameraSet, pyr, cfg: EngineConfig,
+                      thr: Thresholds, cloud: PatchCloud, grid: GridState,
+                      lo: int, hi: int):
+    """Rows [lo, hi)'s vimages / vgrids against the reduced depth maps in
+    `grid`, and their vpgrids counts."""
+    part = _rows_of(cloud, lo, hi)
+    vimages, vgrids = set_vimages(cams, pyr, cfg, thr, grid, cloud,
+                                  part.coord, part.normal, part.images,
+                                  cloud.max_views)
+    vimages = torch.where(part.alive[:, None], vimages,
+                          torch.full_like(vimages, -1))
+    return vimages, vgrids, count_occupancy(vimages, vgrids, part.alive,
+                                            cfg.tn, cfg.gh, cfg.gw)
+
+
+def refresh_visibility_sharded(cams: CameraSet, pyr, cfg: EngineConfig,
+                               thr: Thresholds, cloud: PatchCloud,
+                               grid: GridState, mesh, graphs=None):
+    """refresh_visibility under an engine mesh, equal to it bit for bit:
+    occupancy by a SUM and the depth maps by two MIN all-reduces of the
+    ranks' partial maps, vimages of the rank's rows gathered."""
+    from ..parallel.comm import MIN, SUM
+    from ..parallel.engine_shard import gather_rows, own_rows, reduce_
+    lo, hi = own_rows(mesh, cloud.capacity)
+    occ, flat_d = _visibility_min(cams, cfg, cloud, lo, hi, graphs=graphs)
+    reduce_(mesh, occ, SUM)
+    reduce_(mesh, flat_d, MIN)
+    flat_i = _visibility_ties(cams, cfg, cloud, flat_d, lo, hi,
+                              graphs=graphs)
+    reduce_(mesh, flat_i, MIN)
+    depth, didx = depth_maps(flat_d, flat_i, cfg.tn, cfg.gh, cfg.gw)
+    grid = replace(grid, occ=occ, depth=depth, depth_idx=didx)
+    vimages, vgrids, vocc = _visibility_views(cams, pyr, cfg, thr, cloud,
+                                              grid, lo, hi, graphs=graphs)
+    vimages, vgrids = gather_rows(mesh, [vimages, vgrids])
+    reduce_(mesh, vocc, SUM)
+    return (replace(cloud, vimages=vimages, vgrids=vgrids),
+            replace(grid, vocc=vocc))
+
+
+@program(scene=2, static=("lo", "hi"))
+def _outside_rows(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
+                  cloud: PatchCloud, lo: int, hi: int):
+    return outside_alive(cams, cfg, thr, cloud, lo, hi)
+
+
+@program(scene=3, static=("lo", "hi"))
+def _exact_rows(cams: CameraSet, pyr, cfg: EngineConfig, thr: Thresholds,
+                cloud: PatchCloud, grid: GridState, lo: int, hi: int):
+    return exact_rows(cams, pyr, cfg, thr, cloud, grid, lo, hi)
+
+
+@program(scene=2)
+def _small_groups(cams: CameraSet, cfg: EngineConfig, thr: Thresholds,
+                  cloud: PatchCloud):
+    return filter_small_groups(cams, cfg, thr, cloud, None).alive
+
+
+def run_filters_sharded(cams: CameraSet, pyr, cfg: EngineConfig,
+                        thr: Thresholds, cloud: PatchCloud, grid: GridState,
+                        mesh, graphs=None, read=None):
+    """The filter stage under an engine mesh, equal to run_filters bit for
+    bit: filterOutside, filterExact (its K2 launches on the rank's rows
+    only) and filterNeighbor each decide the rank's own rows against the
+    whole replicated cloud, cell tables and grid, and every visibility
+    refresh is `refresh_visibility_sharded`. filterSmallGroups' label
+    propagation spans the whole neighbour graph, so it runs replicated on
+    the gathered cloud. The neighbour pass's pair budget is sized by the
+    largest of the ranks' own pair counts (one all-reduce, one host read
+    through `read(scalar) -> int`); past MAX_PAIRS_PER_PASS the rank's
+    rows run in chunks. The passes' order is the one-rank stage's
+    (run_filters_pre, then run_filters_post or the chunked pass and
+    run_filters_tail, as PMVSEngine._filters runs them): a change to the
+    order there goes here too. Returns (cloud, grid, stats, pairs dropped
+    (a device scalar), the budget's description)."""
+    from ..parallel.comm import MAX, SUM
+    from ..parallel.engine_shard import gather_rows, own_rows, reduce_
+    from .engine import _bucket15
+    lo, hi = own_rows(mesh, cloud.capacity)
+
+    def refresh(c, g):
+        return refresh_visibility_sharded(cams, pyr, cfg, thr, c, g, mesh,
+                                          graphs=graphs)
+
+    stats = {}
+    cloud, grid = refresh(cloud, grid)
+    n0 = cloud.count()
+    alive, = gather_rows(mesh, [_outside_rows(cams, cfg, thr, cloud, lo, hi,
+                                              graphs=graphs)])
+    cloud = replace(cloud, alive=alive)
+    stats["outside"] = (n0, cloud.count())
+    cloud, grid = refresh(cloud, grid)
+    n0 = cloud.count()
+    images, grids, timages, alive = gather_rows(mesh, list(_exact_rows(
+        cams, pyr, cfg, thr, cloud, grid, lo, hi, graphs=graphs)))
+    cloud = replace(cloud, images=images, grids=grids, timages=timages,
+                    alive=alive)
+    stats["exact"] = (n0, cloud.count())
+    cloud, grid = refresh(cloud, grid)
+
+    n0 = cloud.count()
+    row0 = torch.full((), lo, dtype=torch.int64, device=cloud.coord.device)
+    own = count_neighbor_pairs_rows(cfg, cloud, row0, hi - lo,
+                                    graphs=graphs).to(torch.int64)
+    need = reduce_(mesh, own, MAX)
+    if read is not None:
+        need = read(need)
+    else:
+        with allowed_sync():
+            need = int(need)
+    if need > MAX_PAIRS_PER_PASS:
+        reject, dropped = neighbor_chunks(cams, cfg, thr, cloud, need, lo,
+                                          hi, graphs=graphs, read=read)
+        budget = "chunked exact budgets"
+    else:
+        pb = _bucket15(max(need, 1024), MAX_PAIRS_PER_PASS)
+        reject, dropped = filter_neighbor_rows(cams, cfg, thr, cloud, row0,
+                                               hi - lo, pb, graphs=graphs)
+        budget = f"budget {pb} a rank"
+    reject, = gather_rows(mesh, [reject])
+    dropped = reduce_(mesh, dropped.to(torch.int64), SUM)
+    cloud = replace(cloud, alive=cloud.alive & ~reject)
+    stats["neighbor"] = (n0, cloud.count())
+
+    cloud, grid = refresh(cloud, grid)
+    n0 = cloud.count()
+    cloud = replace(cloud, alive=_small_groups(cams, cfg, thr, cloud,
+                                               graphs=graphs))
+    stats["groups"] = (n0, cloud.count())
+    cloud, grid = refresh(cloud, grid)
+    return cloud, grid, stats, dropped, budget

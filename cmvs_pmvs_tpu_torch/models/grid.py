@@ -89,54 +89,74 @@ def count_cells(key, tn, gh, gw):
     return flat[:-1].reshape(tn, gh, gw)
 
 
+def count_occupancy(images, grids, alive, tn: int, gh: int, gw: int):
+    """[TN, GH, GW] counts of the cells (images, grids) of `alive` rows:
+    one of rebuild_occupancy's two maps, over any rows (a rank's own,
+    whose counts the ranks then sum)."""
+    key, valid = flat_cell_key(images, grids[..., 0], grids[..., 1],
+                               tn, gh, gw)
+    key = torch.where(valid & alive[:, None], key,
+                      torch.full_like(key, tn * gh * gw))
+    return count_cells(key, tn, gh, gw)
+
+
 def rebuild_occupancy(cloud: PatchCloud, tn: int, gh: int, gw: int):
     """(occ, vocc) counts over alive patches' grids/vgrids."""
-    def scat(images, grids):
-        key, valid = flat_cell_key(images, grids[..., 0], grids[..., 1],
-                                   tn, gh, gw)
-        key = torch.where(valid & cloud.alive[:, None], key,
-                          torch.full_like(key, tn * gh * gw))
-        return count_cells(key, tn, gh, gw)
-
-    return scat(cloud.images, cloud.grids), scat(cloud.vimages, cloud.vgrids)
+    return (count_occupancy(cloud.images, cloud.grids, cloud.alive, tn, gh,
+                            gw),
+            count_occupancy(cloud.vimages, cloud.vgrids, cloud.alive, tn,
+                            gh, gw))
 
 
-def rebuild_depth_maps(cams: CameraSet, cloud: PatchCloud, level: int,
-                       csize: int, tn: int, gh: int, gw: int):
-    """Front-most patch per cell by optical-axis depth, scattered into the
-    4 cells around each projection (patchOrganizerS.cpp:351-381); equal
-    depths resolve to the smallest patch index (two scatter-min passes,
-    deterministic on CUDA). Returns (depth, depth_idx)."""
-    dev = cloud.coord.device
+def depth_keys(cams: CameraSet, coord, alive, row0: int, level: int,
+               csize: int, tn: int, gh: int, gw: int):
+    """The depth-map scatter of rows row0.. (`coord`, `alive` their
+    fields): each row's optical-axis depth in every target image [R, TN],
+    its global row index, and the flat keys and gates of the 4 cells
+    around each projection (patchOrganizerS.cpp:351-381)."""
+    dev = coord.device
     tgt = torch.arange(tn, device=dev)
-    ic = project(cams.P[tgt][None], cloud.coord[:, None, :], level)
+    ic = project(cams.P[tgt][None], coord[:, None, :], level)
     fx = ic[..., 0] / csize
     fy = ic[..., 1] / csize
-    depth = cloud.coord @ cams.oaxis[tgt].T                  # [P, TN]
+    depth = coord @ cams.oaxis[tgt].T                        # [R, TN]
     behind = ic[..., 2] < 0.0
     xs = (torch.floor(fx).long(), torch.ceil(fx).long())
     ys = (torch.floor(fy).long(), torch.ceil(fy).long())
     ncell = tn * gh * gw
-    pid = torch.arange(cloud.capacity, device=dev)[:, None].expand_as(fx)
-
+    pid = (row0 + torch.arange(coord.shape[0], device=dev))[:, None] \
+        .expand_as(fx)
     keys = []
     for j in range(2):
         for i in range(2):
             x, y = xs[i], ys[j]
-            ok = (cloud.alive[:, None] & ~behind & (x >= 0) & (x < gw)
+            ok = (alive[:, None] & ~behind & (x >= 0) & (x < gw)
                   & (y >= 0) & (y < gh))
             key = (tgt[None] * gh + y.clamp(0, gh - 1)) * gw \
                 + x.clamp(0, gw - 1)
             keys.append((torch.where(ok, key, torch.full_like(key, ncell)),
                          ok))
+    return keys, depth, pid
+
+
+def depth_min(keys, depth, ncell: int):
+    """The least depth per flat cell [ncell + 1] (the last: the
+    sentinel) over `keys`' rows: the first scatter-min pass."""
     inf = torch.full_like(depth, float("inf"))
-    flat_d = torch.full((ncell + 1,), float("inf"), device=dev)
+    flat_d = torch.full((ncell + 1,), float("inf"), device=depth.device)
     for key, ok in keys:
         flat_d.scatter_reduce_(0, key.reshape(-1),
                                torch.where(ok, depth, inf).reshape(-1),
                                "amin")
+    return flat_d
+
+
+def depth_ties(keys, depth, pid, flat_d, ncell: int):
+    """The least row index per flat cell among `keys`' rows at the cell's
+    least depth `flat_d` (INT32_MAX where none): the second pass, which
+    resolves equal depths to the smallest patch index."""
     flat_i = torch.full((ncell + 1,), INT32_MAX, dtype=torch.int64,
-                        device=dev)
+                        device=depth.device)
     for key, ok in keys:
         at_min = ok & (depth <= flat_d[key])
         flat_i.scatter_reduce_(
@@ -144,9 +164,30 @@ def rebuild_depth_maps(cams: CameraSet, cloud: PatchCloud, level: int,
             .reshape(-1),
             torch.where(at_min, pid, torch.full_like(pid, INT32_MAX))
             .reshape(-1), "amin")
+    return flat_i
+
+
+def depth_maps(flat_d, flat_i, tn: int, gh: int, gw: int):
+    """(depth, depth_idx) [TN, GH, GW] from the two passes' flat maps."""
     didx = flat_i[:-1].reshape(tn, gh, gw)
     didx = torch.where(didx == INT32_MAX, torch.full_like(didx, -1), didx)
     return flat_d[:-1].reshape(tn, gh, gw), didx.to(torch.int32)
+
+
+def rebuild_depth_maps(cams: CameraSet, cloud: PatchCloud, level: int,
+                       csize: int, tn: int, gh: int, gw: int):
+    """Front-most patch per cell by optical-axis depth, scattered into the
+    4 cells around each projection (patchOrganizerS.cpp:351-381); equal
+    depths resolve to the smallest patch index (two scatter-min passes,
+    deterministic on CUDA; over rank slices of the rows, each pass's
+    maps MIN-reduced over the ranks give the same maps). Returns (depth,
+    depth_idx)."""
+    ncell = tn * gh * gw
+    keys, depth, pid = depth_keys(cams, cloud.coord, cloud.alive, 0, level,
+                                  csize, tn, gh, gw)
+    flat_d = depth_min(keys, depth, ncell)
+    flat_i = depth_ties(keys, depth, pid, flat_d, ncell)
+    return depth_maps(flat_d, flat_i, tn, gh, gw)
 
 
 def is_visible(cams: CameraSet, cloud: PatchCloud, grid: GridState,

@@ -35,16 +35,20 @@ def _topk_stable(scores, idxs, k: int):
     return top[..., :k], torch.gather(idxs, -1, order[..., :k])
 
 
-def collect_seed_candidates(cams: CameraSet, pyr: PyramidSet,
-                            cfg: EngineConfig, thr: Thresholds, feats: dict,
-                            ref_views, ref_views_valid,
-                            per_view_cap: int = 4, feat_chunk: int = 2048):
-    """Epipolar-gated candidate pairs for every target image's features
+def seed_candidate_grid(cams: CameraSet, pyr: PyramidSet,
+                        cfg: EngineConfig, thr: Thresholds, feats: dict,
+                        ref_views, ref_views_valid, lo: int = 0,
+                        hi: int | None = None, per_view_cap: int = 4,
+                        feat_chunk: int = 2048):
+    """Epipolar-gated candidate pairs of the reference features [lo, hi)
+    of every target image against all features of its views
     (collectCandidates, seed.cpp:271-323), walked in [tau, chunk, chunk]
     tiles that carry the running top-`per_view_cap` matches per (feature,
-    view). Returns (SeedCandidates with B = tn*F*tau*cap rows, ddiff)."""
+    view); each feature's candidates depend on it alone. Returns
+    (SeedCandidates, ddiff), each field [TN, tau, hi - lo, cap, ...]."""
     tn, tau = cfg.tn, cfg.tau
     n, f = feats["x"].shape
+    hi = f if hi is None else hi
     cap = per_view_cap
     dev = feats["x"].device
     fx = feats["x"].to(torch.float32)
@@ -59,12 +63,14 @@ def collect_seed_candidates(cams: CameraSet, pyr: PyramidSet,
                                cfg.level)                       # [TN,tau,3,3]
     cf = min(feat_chunk, f)
     nf = -(-f // cf)
-    scores = torch.full((tn, tau, f, cap), -float("inf"), device=dev)
-    idxs = torch.zeros((tn, tau, f, cap), dtype=torch.int64, device=dev)
+    fo = hi - lo
+    scores = torch.full((tn, tau, fo, cap), -float("inf"), device=dev)
+    idxs = torch.zeros((tn, tau, fo, cap), dtype=torch.int64, device=dev)
     for r in range(tn):
         vr = vid[r]
-        for i in range(nf):
-            si = slice(i * cf, min((i + 1) * cf, f))
+        for i0 in range(lo, hi, cf):
+            si = slice(i0, min(i0 + cf, hi))
+            so = slice(si.start - lo, si.stop - lo)
             p0c = p_all[r, si]                                  # [ci, 3]
             for j in range(nf):
                 sj = slice(j * cf, min((j + 1) * cf, f))
@@ -82,19 +88,20 @@ def collect_seed_candidates(cams: CameraSet, pyr: PyramidSet,
                 cand_i = torch.arange(sj.start, sj.stop, device=dev).expand(
                     score.shape)
                 top, ti = _topk_stable(
-                    torch.cat([scores[r, :, si], score], -1),
-                    torch.cat([idxs[r, :, si], cand_i], -1), cap)
-                scores[r, :, si] = top
-                idxs[r, :, si] = ti
+                    torch.cat([scores[r, :, so], score], -1),
+                    torch.cat([idxs[r, :, so], cand_i], -1), cap)
+                scores[r, :, so] = top
+                idxs[r, :, so] = ti
     idx = idxs.clamp(0, f - 1)
     ok = torch.isfinite(scores)
 
     # triangulate the selected pairs (seed.cpp:340-384)
     P0l = level_projection(cams.P[ref_ids], cfg.level)
     P1l = level_projection(cams.P[vid], cfg.level)
-    ic0 = torch.stack([fx[ref_ids], fy[ref_ids]], -1)           # [TN, F, 2]
+    ic0 = torch.stack([fx[ref_ids, lo:hi], fy[ref_ids, lo:hi]],
+                      -1)                                       # [TN, Fo, 2]
     ic1_all = torch.stack([fx, fy], -1)                         # [N, F, 2]
-    ic1 = ic1_all[vid[:, :, None, None], idx]                   # [TN,tau,F,C,2]
+    ic1 = ic1_all[vid[:, :, None, None], idx]               # [TN,tau,Fo,C,2]
     coord = triangulate_dlt(P0l[:, None, None, None],
                             P1l[:, :, None, None],
                             ic0[:, None, :, None, :], ic1)      # [...,4]
@@ -114,10 +121,10 @@ def collect_seed_candidates(cams: CameraSet, pyr: PyramidSet,
         coord[..., :3] - cams.center[vid][:, :, None, None, :3], dim=-1)
     ddiff = (d0 - d1).abs()
 
-    cix = torch.div(torch.floor(fx[ref_ids] + 0.5).long(), cfg.csize,
-                    rounding_mode="floor")
-    ciy = torch.div(torch.floor(fy[ref_ids] + 0.5).long(), cfg.csize,
-                    rounding_mode="floor")
+    cix = torch.div(torch.floor(fx[ref_ids, lo:hi] + 0.5).long(),
+                    cfg.csize, rounding_mode="floor")
+    ciy = torch.div(torch.floor(fy[ref_ids, lo:hi] + 0.5).long(),
+                    cfg.csize, rounding_mode="floor")
     cell = (ref_ids[:, None] * cfg.gh + ciy.clamp(0, cfg.gh - 1)) * cfg.gw \
         + cix.clamp(0, cfg.gw - 1)
     shape = ok.shape
@@ -125,12 +132,28 @@ def collect_seed_candidates(cams: CameraSet, pyr: PyramidSet,
     other = vid[:, :, None, None].expand(shape)
     refb = ref_ids[:, None, None, None].expand(shape)
 
+    return SeedCandidates(coord=coord, ref=refb, other=other, cell=cell,
+                          valid=ok), ddiff
+
+
+def collect_seed_candidates(cams: CameraSet, pyr: PyramidSet,
+                            cfg: EngineConfig, thr: Thresholds, feats: dict,
+                            ref_views, ref_views_valid,
+                            per_view_cap: int = 4, feat_chunk: int = 2048):
+    """`seed_candidate_grid` over every reference feature, flattened:
+    (SeedCandidates with B = tn*tau*F*cap rows, ddiff)."""
+    cand, ddiff = seed_candidate_grid(cams, pyr, cfg, thr, feats, ref_views,
+                                      ref_views_valid,
+                                      per_view_cap=per_view_cap,
+                                      feat_chunk=feat_chunk)
+    return _flat_candidates(cand, ddiff)
+
+
+def _flat_candidates(cand: SeedCandidates, ddiff):
     def flat(a):
         return a.reshape((-1,) + a.shape[4:])
 
-    return SeedCandidates(coord=flat(coord), ref=flat(refb),
-                          other=flat(other), cell=flat(cell),
-                          valid=flat(ok)), flat(ddiff)
+    return SeedCandidates(*[flat(a) for a in cand]), flat(ddiff)
 
 
 def _run_rank(sorted_keys):
@@ -144,14 +167,9 @@ def _run_rank(sorted_keys):
     return idx - start
 
 
-@program(scene=3)
-def seed_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
-                  thr: Thresholds, feats, ref_views, ref_views_valid):
-    """Seed stage 1 (reference seed.py:202-225): candidate collection +
-    per-cell pre-selection of the seed_cand closest-ddiff candidates.
-    Returns (candidates, keep, the kept count as a device scalar)."""
-    cand, ddiff = collect_seed_candidates(cams, pyr, cfg, thr, feats,
-                                          ref_views, ref_views_valid)
+def seed_keep(cfg: EngineConfig, cand: SeedCandidates, ddiff):
+    """The per-cell pre-selection of the seed_cand closest-ddiff
+    candidates over the whole batch: (keep, the kept count)."""
     sentinel = cfg.tn * cfg.gh * cfg.gw
     key = torch.where(cand.valid, cand.cell,
                       torch.full_like(cand.cell, sentinel))
@@ -161,7 +179,50 @@ def seed_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     skey = key[order]
     keep = torch.zeros_like(cand.valid)
     keep[order] = (_run_rank(skey) < cfg.seed_cand) & (skey < sentinel)
-    return cand, keep, keep.sum()
+    return keep, keep.sum()
+
+
+@program(scene=3)
+def seed_discover(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
+                  thr: Thresholds, feats, ref_views, ref_views_valid):
+    """Seed stage 1 (reference seed.py:202-225): candidate collection +
+    per-cell pre-selection of the seed_cand closest-ddiff candidates.
+    Returns (candidates, keep, the kept count as a device scalar)."""
+    cand, ddiff = collect_seed_candidates(cams, pyr, cfg, thr, feats,
+                                          ref_views, ref_views_valid)
+    return (cand, *seed_keep(cfg, cand, ddiff))
+
+
+@program(scene=3, static=("lo", "hi"))
+def _seed_rows(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
+               thr: Thresholds, feats, ref_views, ref_views_valid, lo: int,
+               hi: int):
+    """The candidates of reference features [lo, hi), feature-major:
+    each field [hi - lo, TN, tau, cap, ...]."""
+    cand, ddiff = seed_candidate_grid(cams, pyr, cfg, thr, feats, ref_views,
+                                      ref_views_valid, lo, hi)
+    return [a.movedim(2, 0) for a in (*cand, ddiff)]
+
+
+@program(scene=1)
+def _seed_keep(cfg: EngineConfig, cand: SeedCandidates, ddiff):
+    cand, ddiff = _flat_candidates(cand, ddiff)
+    return (cand, *seed_keep(cfg, cand, ddiff))
+
+
+def seed_discover_sharded(cams: CameraSet, pyr: PyramidSet,
+                          cfg: EngineConfig, thr: Thresholds, feats,
+                          ref_views, ref_views_valid, mesh, graphs=None):
+    """seed_discover under an engine mesh (parallel/engine_shard), equal
+    to it bit for bit: each rank collects the candidates of its slice of
+    the feature rows, one all-gather gives every rank all of them, and
+    the per-cell pre-selection runs replicated."""
+    from ..parallel.engine_shard import gather_rows, own_rows
+    lo, hi = own_rows(mesh, feats["x"].shape[1])
+    part = _seed_rows(cams, pyr, cfg, thr, feats, ref_views,
+                      ref_views_valid, lo, hi, graphs=graphs)
+    *fields, ddiff = [a.movedim(0, 2) for a in gather_rows(mesh, part)]
+    return _seed_keep(cfg, SeedCandidates(*fields), ddiff, graphs=graphs)
 
 
 def _argmax_per_group(group, score, valid, num_groups: int):
@@ -237,8 +298,14 @@ def run_seed(cams: CameraSet, pyr: PyramidSet, cfg: EngineConfig,
     `ensure_capacity(needed)` may grow the cloud before the commit so no
     accepted seed is dropped."""
     from .engine import _bucket15
-    cand, keep, nkeep = seed_discover(cams, pyr, cfg, thr, feats, ref_views,
-                                      ref_views_valid, graphs=graphs)
+    if mesh is None:
+        cand, keep, nkeep = seed_discover(cams, pyr, cfg, thr, feats,
+                                          ref_views, ref_views_valid,
+                                          graphs=graphs)
+    else:
+        cand, keep, nkeep = seed_discover_sharded(
+            cams, pyr, cfg, thr, feats, ref_views, ref_views_valid, mesh,
+            graphs=graphs)
     cap = min(keep.shape[0], cfg.tn * feats["x"].shape[1] * cfg.seed_cand)
     with allowed_sync():
         nkeep = int(nkeep)

@@ -13,7 +13,9 @@ ranks share a GPU or run on the CPU. gloo implements only `broadcast`
 and `all_reduce` for CUDA tensors, so the collectives it lacks there
 (`all_gather`, and with it the pair exchange) are staged through host
 memory by an explicit branch on the backend; each staged call is counted
-in STAGED.
+in STAGED, and its bytes (sent and received) under "<name>_bytes".
+gloo's own CUDA all-reduces also pass through host memory: their calls
+and bytes are counted there as "all_reduce" / "all_reduce_bytes".
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-# collectives staged through host memory (gloo with CUDA tensors), by name
+# collectives staged through host memory (gloo with CUDA tensors): calls
+# by name, and their bytes by name + "_bytes"
 STAGED: collections.Counter = collections.Counter()
 # a collective that waits longer than this raises instead of hanging
 TIMEOUT = timedelta(minutes=10)
@@ -90,9 +93,16 @@ def _stage(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def _count(name: str, nbytes: int):
+    STAGED[name] += 1
+    STAGED[name + "_bytes"] += nbytes
+
+
 def all_reduce_(t: torch.Tensor, op=SUM, group=None) -> torch.Tensor:
     """`t` reduced in place over `group` (gloo reduces CUDA tensors
-    itself); returns `t`."""
+    itself, through host memory: counted); returns `t`."""
+    if _stage(t, group):
+        _count("all_reduce", 2 * t.numel() * t.element_size())
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -104,7 +114,7 @@ def _all_gather(t: torch.Tensor, group) -> list:
     if src.dtype == torch.bool:
         src = src.view(torch.uint8)
     if _stage(t, group):
-        STAGED["all_gather"] += 1
+        _count("all_gather", (n + 1) * src.numel() * src.element_size())
         host = src.cpu()
         outs = [torch.empty_like(host) for _ in range(n)]
         dist.all_gather(outs, host, group=group)
@@ -138,29 +148,6 @@ def exchange_pair(t: torch.Tensor, group=None) -> torch.Tensor:
     if dist.get_world_size(group) != 2:
         raise ValueError("exchange_pair needs a group of 2 ranks")
     return _all_gather(t, group)[1 - dist.get_rank(group)]
-
-
-def _byte_views(tensors) -> tuple[torch.Tensor, list]:
-    """One uint8 buffer holding `tensors` back to back, each padded to 8
-    bytes, and the (offset, size) of each."""
-    parts, spans, off = [], [], 0
-    for t in tensors:
-        b = t.contiguous().reshape(-1).view(torch.uint8)
-        pad = -b.numel() % 8
-        parts.append(torch.nn.functional.pad(b, (0, pad)) if pad else b)
-        spans.append((off, b.numel()))
-        off += b.numel() + pad
-    return torch.cat(parts), spans
-
-
-def broadcast(tensors, src: int = 0, group=None) -> list:
-    """Rank `src`'s (a group rank) `tensors` on every rank, packed into
-    one broadcast; new tensors shaped and typed as the given ones."""
-    buf, spans = _byte_views(tensors)
-    dist.broadcast(buf, src=dist.get_global_rank(group, src)
-                   if group is not None else src, group=group)
-    return [buf[off:off + size].view(t.dtype).reshape(t.shape)
-            for t, (off, size) in zip(tensors, spans)]
 
 
 def pack_rows(tensors) -> torch.Tensor:

@@ -1,28 +1,49 @@
-"""Data-parallel engine: the candidate pipeline's work split over ranks.
+"""Data-parallel engine: the cloud's rows split over ranks.
 
-Counterpart of cmvs_pmvs_tpu/parallel/engine_shard.py, which shards the
-JAX engine's patch cloud over a `patch` mesh axis and lets GSPMD
-partition every phase. Here the ranks of the default process group run
-one engine each (SPMD), and what is split is the work of the candidate
-pipeline, `models/process.process_candidates_chunked`: seeding's and
-every expand wave's refine + postProcess batch, which carries every K1
-launch and most K2 launches. Each rank takes an equal contiguous slice
-of the batch (padding rows inactive), runs `process_candidates` on it,
-and the slices' results are gathered back onto every rank.
+Counterpart of cmvs_pmvs_tpu/parallel/engine_shard.py, which shards
+every [P_cap, ...] array of the JAX engine's patch cloud over a `patch`
+mesh axis (`pin_cloud`) and lets GSPMD split each jitted phase by rows,
+inserting the collectives the phases need. Here the ranks of the default
+process group run one engine each (SPMD) and split each phase by rows
+themselves:
 
-The cloud, the grid and the filters stay replicated: every rank holds
-and updates the whole state. The full protocol's peak is 22.3 GB on an
-H100 80GB HBM3 (PERF.md section 5), so the state fits each rank's card;
-sharding the cloud would need hand-written gathers for the cell-table
-lookups of every phase. Sharding the filters' K2 work is left to do.
+  * reads stay replicated: every rank holds the whole cloud (53 + 24 *
+    t_store bytes a row, ~68 MB at p_cap 200,000) and grid, the
+    counterpart of the all-gathers GSPMD inserts for the cell-table
+    lookups;
+  * writes are sharded: in seeding's and every expand wave's refine +
+    postProcess batch (`shard_rows` / `gather_result`), in seed and
+    expand discovery (feature and frontier rows), and in the filter
+    stage (`filter_outside`, `filter_exact` - its K2 launches -, the
+    neighbour pass, and every visibility refresh) a rank computes only
+    its own rows (`own_rows`: an equal slice of the phase's rows) and
+    one packed all-gather (`gather_rows`) of the fields the phase
+    changed gives every rank the whole result;
+  * the depth maps are two MIN all-reduces (least depth, then the least
+    global row index at it) and the occupancy maps SUM all-reduces of
+    each rank's counts (models/grid), equal to one rank's maps bit for
+    bit;
+  * what decides across the whole batch stays replicated, on gathered
+    inputs: the commits' conflict resolution (expand's commit_select /
+    commit_apply, seed_commit), the seeds' per-cell pre-selection,
+    discovery's per-cell dedupe, filterSmallGroups' label propagation
+    and the compaction.
 
-The replicated phases use CUDA atomics (`index_add_`, scatters), so two
-ranks may drift by an ulp and then take different control flow - a
-different batch size or capacity hangs the next collective.
-`sync_state` therefore broadcasts rank 0's cloud and grid after the
-seed, after each wave's commit and after each filter stage (the
-counterpart of the JAX engine's `_pin` re-pinning), and the engine
+Every write a rank gathers was computed by exactly one rank, and what
+stays replicated is integer or order-fixed work (scatter-min/max,
+integer `index_add_`, stable sorts; no float atomics), so the ranks
+hold the same state without a broadcast: on two and four ranks the
+full protocol's clouds are byte-identical across the ranks and equal
+to one rank's. `check_agreement` holds them to it after the seed, after
+each wave's commit and after each filter stage (the counterpart of the
+JAX engine's `_pin` re-pinning): one all-reduce of a few int64
+checksums, and a RuntimeError on every rank when they differ. The engine
 agrees on capacities with a max over the ranks.
+
+On CUDA each rank's parts of a phase are static-shape programs replayed
+from CUDA graphs (models/graphs), keyed by the rank's row range; the
+collectives between them run eagerly (a gloo collective cannot be
+captured, and NCCL does not put two ranks on one card).
 
 Usage: `PMVSEngine(..., mesh=make_engine_mesh())` on every rank, after
 `parallel.comm.init_from_env()`.
@@ -34,8 +55,9 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from .comm import MAX, SUM, all_gather_rows, all_reduce_, broadcast, \
-    pack_rows, unpack_rows
+from ..models.graphs import allowed_sync
+from .comm import MAX, SUM, all_gather_rows, all_reduce_, pack_rows, \
+    unpack_rows
 from .sharding import Mesh
 
 
@@ -89,14 +111,58 @@ def gather_result(mesh: Mesh, part, b: int):
                       **dict(zip(names, unpack_rows(rows, fields))))
 
 
-def sync_state(engine) -> None:
-    """Replace every rank's cloud and grid by rank 0's."""
-    objs = (engine.cloud, engine.grid)
-    names = [[f.name for f in dataclasses.fields(o)] for o in objs]
-    flat = broadcast([getattr(o, n) for o, ns in zip(objs, names)
-                      for n in ns], 0, engine.mesh.patch_group)
-    k = len(names[0])
-    engine.cloud = dataclasses.replace(objs[0], **dict(zip(names[0],
-                                                           flat[:k])))
-    engine.grid = dataclasses.replace(objs[1], **dict(zip(names[1],
-                                                          flat[k:])))
+def own_rows(mesh: Mesh, n: int) -> tuple[int, int]:
+    """[lo, hi) of this rank's slice of a phase's `n` rows: ceil(n /
+    ranks) rows a rank in rank order, the last slices shorter where the
+    ranks do not divide `n` (the engine's capacities are multiples of
+    the rank count, so there they are equal)."""
+    per = -(-n // mesh.shape[0])
+    lo = min(mesh.patch * per, n)
+    return lo, min(lo + per, n)
+
+
+def gather_rows(mesh: Mesh, tensors) -> list:
+    """Every rank's row slice of each of `tensors` (one leading
+    dimension, equal across the list), concatenated in rank order: one
+    packed all-gather."""
+    packed = all_gather_rows(pack_rows(tensors), mesh.patch_group)
+    return unpack_rows(packed, tensors)
+
+
+def reduce_(mesh: Mesh, t: torch.Tensor, op) -> torch.Tensor:
+    """`t` all-reduced in place with `op` over the patch axis."""
+    return all_reduce_(t, op, mesh.patch_group)
+
+
+def checksums(tensors) -> torch.Tensor:
+    """[len(tensors)] int64: each tensor's 32-bit words summed with
+    position weights (wrapping), so that a change of any one word or an
+    exchange of two moves the sum."""
+    out = []
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        if b.numel() % 4:
+            b = torch.nn.functional.pad(b, (0, -b.numel() % 4))
+        w = b.view(torch.int32).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append((w * pos).sum())
+    return torch.stack(out)
+
+
+def check_agreement(mesh: Mesh, where: str, **objs) -> None:
+    """Raise RuntimeError on every rank unless every rank holds the same
+    fields of the dataclasses `objs` (the cloud, the grid): one
+    all-reduce of their checksums against their negations."""
+    names, tensors = [], []
+    for label, o in objs.items():
+        for f in dataclasses.fields(o):
+            names.append(f"{label}.{f.name}")
+            tensors.append(getattr(o, f.name))
+    c = checksums(tensors)
+    both = reduce_(mesh, torch.cat([c, -c]), MAX)
+    with allowed_sync():
+        hi, neg_lo = both.cpu().view(2, -1).tolist()
+    differ = [n for n, a, b in zip(names, hi, neg_lo) if a != -b]
+    if differ:
+        raise RuntimeError(f"the ranks' states differ after {where}: "
+                           f"{', '.join(differ)}")

@@ -8,40 +8,103 @@ wrappers' counters are zeroed just before the work and read just after.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import importlib
+import importlib.util
 import os
+import sys
 import time
 
 import torch
 import torch.distributed as dist
 
-from . import comm
-
 _QUIET = dict(log=lambda *a: None)
+PORT = __name__.rsplit(".", 2)[0]
 
 
-def _wrappers():
-    from ..ops.kernels import entries
-    return entries()
+def port(tree: str | None = None):
+    """The port's package: this one, or with `tree` the copy in that
+    checkout, imported under a name of its own (the port's modules import
+    one another relatively), so that one rank process can run two
+    checkouts' engines one after the other."""
+    if tree is None or os.path.samefile(tree, os.path.dirname(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))))):
+        return importlib.import_module(PORT)
+    path = os.path.join(os.path.abspath(tree), PORT)
+    name = f"{PORT}_{hashlib.sha256(path.encode()).hexdigest()[:8]}"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(path, "__init__.py"),
+            submodule_search_locations=[path])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[name] = pkg
+        spec.loader.exec_module(pkg)
+    return sys.modules[name]
 
 
-def _zero_launches():
-    for w in _wrappers().values():
+def _mod(pkg, name: str):
+    """The module `name` (dotted, under the package) of `pkg` (None:
+    this port)."""
+    return importlib.import_module(f"{(pkg or port()).__name__}.{name}")
+
+
+def _wrappers(pkg=None):
+    return _mod(pkg, "ops.kernels").entries()
+
+
+def _zero_launches(pkg=None, peak: bool = True):
+    for w in _wrappers(pkg).values():
         w.launches = 0
-    comm.STAGED.clear()
-    if torch.cuda.is_available():
+    _mod(pkg, "parallel.comm").STAGED.clear()
+    if peak and torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
 
 
-def _report(dev, t0) -> dict:
+def _report(dev, t0, pkg=None) -> dict:
     peak = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
     return {"seconds": time.time() - t0, "backend": dist.get_backend(),
-            "staged": dict(comm.STAGED), "peak_gb": peak,
-            "launches": {k: w.launches for k, w in _wrappers().items()}}
+            "staged": dict(_mod(pkg, "parallel.comm").STAGED),
+            "peak_gb": peak,
+            "launches": {k: w.launches for k, w in _wrappers(pkg).items()}}
+
+
+@contextlib.contextmanager
+def engine_probe(pkg=None):
+    """While open, `PMVSEngine.run` and `PMVSEngine._filter_round` of
+    `pkg` (None: this port) are wrapped so that the dict this yields
+    records each run's wall seconds ("run_seconds") and each filter
+    round's prefix rows and kernel launches ("filter_rounds"); both are
+    restored on exit. The rank processes are the job's own, so the wrap
+    reaches every engine the job makes, `reconstruct`'s included."""
+    cls = _mod(pkg, "models.engine").PMVSEngine
+    kernels = _mod(pkg, "ops.kernels")
+    run, filter_round = cls.run, cls._filter_round
+    rec = {"run_seconds": [], "filter_rounds": []}
+
+    def timed_run(self, *args, **kwargs):
+        t0 = time.time()
+        try:
+            return run(self, *args, **kwargs)
+        finally:
+            rec["run_seconds"].append(time.time() - t0)
+
+    def counted_round(self, it, n_alive, stats):
+        before = kernels.launch_counts()
+        filter_round(self, it, n_alive, stats)
+        rec["filter_rounds"].append(
+            {"rows": self._cap_bucket(n_alive),
+             "launches": kernels.launches_since(before)})
+
+    cls.run, cls._filter_round = timed_run, counted_round
+    try:
+        yield rec
+    finally:
+        cls.run, cls._filter_round = run, filter_round
 
 
 def cloud_digest(cloud) -> str:
@@ -87,23 +150,62 @@ def refine_step_job(dev, scene: dict, batch: dict, view_parallel: int,
     return out
 
 
-def engine_job(dev, root: str, option: str, p_cap: int,
-               run_kwargs: dict) -> dict:
-    """The data-parallel engine (`reconstruct(..., mesh=
-    make_engine_mesh())`) on every rank; rank 0 writes the outputs and
-    returns the alive rows' coord and dscale, every rank its cloud's
-    digest, count, capacity and launches."""
-    from ..models.engine import reconstruct
-    from .engine_shard import make_engine_mesh
-    mesh = make_engine_mesh()
-    _zero_launches()
-    t0 = time.time()
-    eng = reconstruct(root, option, p_cap=p_cap, device=dev, mesh=mesh,
-                      **_QUIET, **run_kwargs)
-    out = _report(dev, t0)
+def engine_job(dev, root: str, option: str, p_cap: int, run_kwargs: dict,
+               runs: tuple = ("cold",), tree: str | None = None) -> dict:
+    """The data-parallel engine, `reconstruct(root, option, mesh=
+    make_engine_mesh())`, on every rank, once for each of `runs`: "cold"
+    on an emptied process graph cache, "steady" on the cache the runs
+    before it kept, "profiled" on that cache under torch.profiler.
+    `tree`: another checkout's port runs (`port`). Rank 0 writes the
+    outputs. Every rank returns, of the last run, its cloud's digest,
+    count, capacity, stats, kernel launches, phase seconds and each
+    filter round's prefix rows and launches (`engine_probe`), rank 0 the
+    alive rows' coord and dscale; and in "runs", for each run, its
+    `PMVSEngine.run` seconds, phase seconds and each filter round's K2
+    launches, and a profiled run's device busy and wall ms by phase,
+    busy share and launch calls. The peak memory is over every run. The
+    process's graph cache gives its memory back after the last run."""
+    from ..scripts import profiling
+    pkg = port(tree)
+    E = _mod(pkg, "models.engine")
+    shared = _mod(pkg, "models.graphs").shared
+    mesh = _mod(pkg, "parallel.engine_shard").make_engine_mesh()
+    timed = []
+    _zero_launches(pkg)
+    try:
+        for kind in runs:
+            if kind == "cold" and dev.type == "cuda":
+                shared(dev).clear()
+            _zero_launches(pkg, peak=False)
+            prof = torch.profiler.profile(
+                activities=profiling.activities()) \
+                if kind == "profiled" else contextlib.nullcontext()
+            t0 = time.time()
+            with engine_probe(pkg) as rec, prof:
+                eng = E.reconstruct(root, option, p_cap=p_cap, device=dev,
+                                    mesh=mesh, **_QUIET, **run_kwargs)
+                out = _report(dev, t0, pkg)
+            phases = {k: v.seconds for k, v in eng.tracer.spans.items()}
+            r = {"kind": kind, "seconds": rec["run_seconds"][0],
+                 "phases": phases, "filter_k2": [
+                     rd["launches"].get("windows", 0)
+                     for rd in rec["filter_rounds"]]}
+            if kind == "profiled":
+                s = profiling.summarize(profiling.events(prof))
+                r.update(busy_share=s["busy_share"],
+                         launch_calls=s["launch_calls"],
+                         device={ph: {"busy_ms": s["spans"][ph]["busy_ms"],
+                                      "wall_ms": s["spans"][ph]["wall_ms"]}
+                                 for ph in ("seed", "expand", "filter")
+                                 if ph in s["spans"]})
+            timed.append(r)
+    finally:
+        if dev.type == "cuda":
+            shared(dev).clear()
     alive = eng.cloud.alive.cpu().numpy()
     out.update(digest=cloud_digest(eng.cloud), count=int(alive.sum()),
-               p_cap=eng.p_cap, stats=eng.stats)
+               p_cap=eng.p_cap, stats=eng.stats,
+               filter_rounds=rec["filter_rounds"], phases=phases, runs=timed)
     if mesh.patch == 0:
         out.update(coord=eng.cloud.coord.cpu().numpy()[alive],
                    dscale=eng.cloud.dscale.cpu().numpy()[alive])

@@ -10,16 +10,23 @@ held to the same work on one rank:
      ungrouped central-difference LM's bits): plane distance difference
      / dscale median < 0.1 and q90 < 0.5, NCC median > 0.9;
   2. the data-parallel engine (`reconstruct(..., mesh=
-     make_engine_mesh())`) on the full protocol (occluded scene, 12
-     views at 640x480, 3 expand rounds) against one rank: the count
-     within 1%, surface distance / dscale median < 0.4 and q90 < 1.5,
-     the ranks' clouds byte-identical;
+     make_engine_mesh())`, each rank computing its own rows of every
+     phase) on the full protocol (occluded scene, 12 views at 640x480, 3
+     expand rounds) against one rank: the count within 1%, surface
+     distance / dscale median < 0.4 and q90 < 1.5, the ranks' clouds
+     byte-identical; on 1 and N ranks a cold run, a steady run on the
+     kept process graph cache and a profiled run, with each rank's
+     seconds, phase seconds, filter-stage K2 launches a round, device
+     busy ms by phase and peak memory; `--tree` runs that checkout's
+     engine (`workers.port`) under this harness, so a parent and a
+     change are timed in one call;
   3. the refine wave's curve (scripts/scaling_curve) at 1, 2, 4 ranks.
 
 Prints each check's numbers as it goes and, last, one JSON line with
 the card's name and power limit. Raises when a check fails.
 
     python -m cmvs_pmvs_tpu_torch.scripts.multi_card [--ranks N]
+        [--checks refine,engine,curve] [--tree DIR ...] [--out FILE]
 """
 from __future__ import annotations
 
@@ -80,13 +87,19 @@ def refine_check(pool, ranks: int, b: int = 8192, iters: int = 8) -> dict:
     return res
 
 
-def engine_check(pool, ranks: int, scene, root: str, run: dict) -> dict:
-    """Check 2 on the tree at `root` (option.txt), `run` kwargs."""
+ENGINE_RUNS = ("cold", "steady", "profiled")
+
+
+def engine_check(pool, ranks: int, scene, root: str, run: dict,
+                 runs: tuple = ENGINE_RUNS, tree: str | None = None) -> dict:
+    """Check 2 on the tree at `root` (option.txt), `run` kwargs: on 1 and
+    `ranks` ranks, `runs` (workers.engine_job) of `tree`'s engine (None:
+    this checkout's); the bars on the last run."""
     from ..parallel import workers
     res = {}
     for n in (1, ranks):
         outs = pool.run(workers.engine_job, n, root, "option.txt", 200_000,
-                        run)
+                        run, runs, tree)
         d = scene.surface_distance(outs[0]["coord"][:, :3]) \
             / outs[0]["dscale"]
         res[n] = {"patches": outs[0]["count"],
@@ -94,10 +107,14 @@ def engine_check(pool, ranks: int, scene, root: str, run: dict) -> dict:
                   "q90": float(np.quantile(d, 0.9)),
                   "seconds": [o["seconds"] for o in outs],
                   "identical": len({o["digest"] for o in outs}) == 1,
+                  "digest": outs[0]["digest"],
                   "backend": outs[0]["backend"], "staged": outs[0]["staged"],
                   "launches": [{k: v for k, v in o["launches"].items() if v}
-                               for o in outs]}
-        print(f"engine[{n} ranks]: {json.dumps(res[n])}", flush=True)
+                               for o in outs],
+                  "peak_gb": [o["peak_gb"] for o in outs],
+                  "runs": [o["runs"] for o in outs]}
+        print(f"engine[{tree or 'this tree'}, {n} ranks]: "
+              f"{json.dumps(res[n])}", flush=True)
     one, many = res[1], res[ranks]
     if not (many["identical"] and many["median"] < 0.4 and many["q90"] < 1.5
             and abs(many["patches"] - one["patches"])
@@ -122,7 +139,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=None,
                     help="ranks, one per GPU (default: every GPU)")
+    ap.add_argument("--checks", default="refine,engine,curve",
+                    help="the checks to run, comma-separated")
+    ap.add_argument("--tree", action="append", default=None,
+                    help="a checkout whose engine check 2 runs, in the "
+                         "order given (repeatable; default: this one)")
+    ap.add_argument("--out", default=None, help="also write the result here")
     args = ap.parse_args(argv)
+    checks = args.checks.split(",")
     from ..device import resolve_device
     from ..parallel.launch import RankPool
     from .ablate_common import card
@@ -130,20 +154,31 @@ def main(argv=None) -> int:
     resolve_device("cuda")
     ranks = args.ranks or torch.cuda.device_count()
     t0 = time.time()
+    out = {}
     with tempfile.TemporaryDirectory() as tmp, \
             RankPool(ranks, "cuda", tmp, threads=2) as pool:
-        out = {"refine": refine_check(pool, ranks)}
-        root = os.path.join(tmp, "scene")
-        scene = protocol_tree(root)
-        out["engine"] = engine_check(pool, ranks, scene, root,
-                                     dict(expand_iters=3, max_waves=12,
-                                          refine_iters=8))
-        shutil.rmtree(root)
-        out["curve"] = curve(pool, sorted({1, 2, 4, ranks} & set(
-            range(1, ranks + 1))))
+        if "refine" in checks:
+            out["refine"] = refine_check(pool, ranks)
+        if "engine" in checks:
+            root = os.path.join(tmp, "scene")
+            scene = protocol_tree(root)
+            out["engine"] = [
+                {"tree": tree, **engine_check(
+                    pool, ranks, scene, root, dict(expand_iters=3,
+                                                   max_waves=12,
+                                                   refine_iters=8),
+                    tree=tree)}
+                for tree in args.tree or [None]]
+            shutil.rmtree(root)
+        if "curve" in checks:
+            out["curve"] = curve(pool, sorted({1, 2, 4, ranks} & set(
+                range(1, ranks + 1))))
     out["seconds"] = time.time() - t0
     out["device"] = card()
     out["count"] = torch.cuda.device_count()
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f)
     print(json.dumps(out))
     return 0
 
