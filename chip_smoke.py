@@ -218,6 +218,49 @@ raises on failure (the script then exits non-zero):
    the process's cache as phase 18 leaves it (three signatures' graphs
    and resident scenes): phase 5's bars, K4 and K2 launched; the pool's
    reserved bytes before and after, the peak and the graphs logged.
+20. Fault recovery (tests/test_fault.py's two seams, and the port's own
+   torchrun launch), run after 12(d) while phase 12's ranks are alive.
+   (a) `python -u -m cmvs_pmvs_tpu_torch.cli.pmvs_all TREE` on the card,
+   TREE a copy of phase 11b's tree with models/ emptied, SIGKILLed once
+   option-0000.done exists and it has logged that it reconstructs
+   option-0001; option-0001.done must be absent. option-0001's files
+   are then truncated (their first 300 bytes of 11b's, what a kill
+   during the write leaves) and the same command again must exit 0, log
+   option-0000 as already complete, leave its files as the killed run
+   wrote them, reconstruct option-0001 and merge. The merge must be
+   11b's byte for byte, or else its first differing record is logged
+   and its count must lie within 0.1% of 11b's and meet 11b's bars.
+   Which outcome happened is logged. (b) A fresh copy of the tree with
+   (a)'s option-0000 files and .done marker, under `python -m
+   torch.distributed.run --standalone --nproc_per_node 2 -m
+   cmvs_pmvs_tpu_torch.cli.pmvs_all TREE` (2 ranks sharing the card over
+   gloo): rank 0 waits at the merge barrier while rank 1 reconstructs;
+   rank 1 (torchrun's child with RANK=1 in /proc/PID/environ) is
+   SIGKILLed after its `reconstructing on process 1/2` line. The job
+   must exit non-zero within 60 s, with no rank left running and no
+   models/all.* written. The same command again must exit 0 with (a)'s
+   merge, held as (a) holds it to 11b's. (c) On phase 5's scene and the
+   process's graph cache, a PMVSEngine runs one expand round and saves a
+   checkpoint; a fresh engine loads it and runs rounds 2-3
+   (`run(start_iter=1)`). The result must have phase 5's count, sorted
+   coordinates within 1e-5 of phase 5's, phase 5's bars, and K1 and K2
+   launches in the resumed rounds. Logged: the checkpoint's bytes, its
+   save and load seconds, the graphs captured and replayed, and whether
+   the written files equal phase 5's. Then 2 of phase 12's ranks resume
+   the same checkpoint under an engine mesh (parallel/workers.
+   resume_job), checked as 12(b) checks the sharded engine: the ranks
+   byte-identical, 12(b)'s bars, the count within 1% of the one-rank
+   resume, K1 and K2 on both ranks. Whether it equals the one-rank
+   resume bit for bit is logged. Seconds from each SIGKILL to the exit
+   and of each rerun are logged. To save time the parts overlap: (c)
+   runs while (a)'s first process runs to its kill and, once (a)'s first
+   cluster is done, (b)'s job starts and is killed; (b)'s rerun runs
+   beside (a)'s. So each part's seconds are taken beside the others'
+   work.
+
+The script renders each distinct synthetic scene once (`share_scenes`:
+the protocol scene, which phases 5, 14 and 17 ask for), and phase 18's
+two other scenes render in background processes from the start.
 
 Kernel times (`timed`, and the drivers' sweeps) are CUDA-event medians
 of calls each queued behind a device spin, so the host's part of a call
@@ -1039,6 +1082,56 @@ def launcher(name: str):
             "windows": windows, "incc_blocks": incc_blocks}[base_name(name)]
 
 
+# Phase 18's scenes, rendered in background processes from the start
+# (`share_scenes`).
+LATER_SCENES = (dict(num_cameras=12, width=640, height=480, focal=700.0,
+                     seed=43),
+                dict(num_cameras=10, width=640, height=480, focal=700.0,
+                     seed=44))
+
+
+def render_scene(kwargs: dict):
+    """`make_occluded_scene(**kwargs)`, as a background process runs it."""
+    from cmvs_pmvs_tpu_torch.utils.synthetic import make_occluded_scene
+    return make_occluded_scene(**kwargs)
+
+
+def share_scenes(prerender=()):
+    """From here on in this process, `utils.synthetic.make_occluded_scene`
+    renders each distinct call once and hands the same scene to every
+    later call with the same arguments (phases and the drivers they run
+    read their scenes and never write them), so the protocol scene that
+    phases 5, 14 and 17 each ask for (~10 s on the card's host) is
+    rendered once. The calls in `prerender` (keyword arguments) render
+    meanwhile in background processes. Returns their executor, which the
+    caller shuts down."""
+    import concurrent.futures
+    import inspect
+    import multiprocessing
+    from cmvs_pmvs_tpu_torch.utils import synthetic
+    render = synthetic.make_occluded_scene
+    sig = inspect.signature(render)
+
+    def key(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        return tuple(bound.arguments.items())
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max(1, len(prerender)),
+        mp_context=multiprocessing.get_context("spawn"))
+    scenes = {key(**kw): pool.submit(render_scene, kw) for kw in prerender}
+
+    def shared(*args, **kwargs):
+        k = key(*args, **kwargs)
+        if k not in scenes:
+            scenes[k] = render(*args, **kwargs)
+        elif isinstance(scenes[k], concurrent.futures.Future):
+            scenes[k] = scenes[k].result()
+        return scenes[k]
+    synthetic.make_occluded_scene = shared
+    return pool
+
+
 def write_scene(name: str = "chip_smoke_scene", scene=None) -> tuple:
     """The protocol scene (rendered, or `scene` again) as a PMVS tree
     under build/<name>."""
@@ -1221,7 +1314,7 @@ def phase_protocol(dev, scene, root, label: str, flags: dict,
                              f"{med}, q90 {q90}")
     res = {"launches": launches, "calls": calls, "n": n, "seconds": total,
            "median": med, "q90": q90, "peak": peak, "stats": eng.stats,
-           "held": held}
+           "held": held, "coord": coord}
     if not outputs:
         return res
     base = os.path.join(root, "models", "option.txt")
@@ -1700,9 +1793,504 @@ def phase_halo(pool, pipeline: dict) -> dict:
     return summed_launches(outs)
 
 
-def phase_multi_rank(dev, scene, protocol5: dict, pipeline: dict) -> dict:
+# Phase 20: fault recovery. A subprocess gets this long for a run.
+FAULT_WAIT = 300.0
+
+
+def fault_tree(src: str, name: str) -> str:
+    """A copy of the tree `src` (phase 11b's) under build/<name>, with
+    models/ emptied."""
+    dst = os.path.join(ROOT, "build", name)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("models"))
+    os.makedirs(os.path.join(dst, "models"))
+    return dst
+
+
+def tail(path: str, n: int = 3000) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+def spawn(cmd: list, log_path: str, procs: list):
+    """`cmd` started from the repository's root in a session of its own,
+    its output to `log_path`; the Popen is also appended to `procs`, for
+    `stop`."""
+    import subprocess
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    procs.append(proc)
+    return proc
+
+
+def children(pid: int) -> list:
+    """`pid`'s children (/proc/<pid>/task/*/children)."""
+    import glob
+    out = []
+    for path in glob.glob(f"/proc/{pid}/task/*/children"):
+        with open(path) as f:
+            out += [int(c) for c in f.read().split()]
+    return out
+
+
+def stop(proc):
+    """If `proc` still runs: SIGKILL its session and every process below
+    it (torchrun starts its ranks in sessions of their own); then reap
+    it."""
+    import signal
+    if proc.poll() is None:
+        below, todo = [], [proc.pid]
+        while todo:
+            kids = children(todo.pop())
+            below += kids
+            todo += kids
+        for pid in [proc.pid] + below:
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    proc.wait(timeout=60)
+
+
+def wait_until(proc, log_path: str, ready, what: str):
+    """Poll until `ready()`; raise if `proc` exits first or FAULT_WAIT
+    passes."""
+    deadline = time.monotonic() + FAULT_WAIT
+    while not ready():
+        if proc.poll() is not None:
+            raise AssertionError(f"fault: the process exited "
+                                 f"({proc.returncode}) before {what}:\n"
+                                 f"{tail(log_path)}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fault: no {what} within {FAULT_WAIT} s:"
+                                 f"\n{tail(log_path)}")
+        time.sleep(0.05)
+
+
+def kill_when(proc, log_path: str, ready, what: str) -> tuple:
+    """SIGKILL `proc` once `ready()` (`wait_until`); (seconds from this
+    call to the kill, seconds from the kill to the process's end)."""
+    import signal
+    t0 = time.monotonic()
+    wait_until(proc, log_path, ready, what)
+    t_kill = time.monotonic()
+    os.kill(proc.pid, signal.SIGKILL)
+    proc.wait(timeout=60)
+    return t_kill - t0, time.monotonic() - t_kill
+
+
+def run_to_end(cmd: list, log_path: str, procs: list) -> tuple:
+    """(exit code, seconds, output) of `cmd` run to its end (`spawn`)."""
+    import subprocess
+    t0 = time.monotonic()
+    proc = spawn(cmd, log_path, procs)
+    try:
+        rc = proc.wait(timeout=FAULT_WAIT)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"fault: {cmd} still running after "
+                             f"{FAULT_WAIT} s:\n{tail(log_path)}") from None
+    finally:
+        stop(proc)
+    return rc, time.monotonic() - t0, tail(log_path, 1 << 20)
+
+
+def in_thread(fn, *args) -> dict:
+    """fn(*args) started in a daemon thread; `joined` waits for it."""
+    import threading
+    job = {}
+
+    def body():
+        try:
+            job["result"] = fn(*args)
+        except Exception as e:
+            job["error"] = e
+    job["thread"] = threading.Thread(target=body, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def joined(job: dict, timeout: float):
+    """The result of an `in_thread` job; raises its error, or if it has
+    not ended within `timeout` s."""
+    job["thread"].join(timeout=timeout)
+    if "error" in job:
+        raise job["error"]
+    if "result" not in job:
+        raise AssertionError(f"fault: a job still runs after {timeout} s")
+    return job["result"]
+
+
+def model_files(root: str, name: str, exts=(".patch", ".ply", ".pset")):
+    return {ext: open(os.path.join(root, "models", name + ext), "rb").read()
+            for ext in exts}
+
+
+def proc_env(pid: int) -> dict:
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        return dict(kv.decode(errors="replace").split("=", 1)
+                    for kv in f.read().split(b"\0") if b"=" in kv)
+
+
+def alive(pid: int) -> bool:
+    """Whether `pid` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def merged_against(label: str, root: str, ref: str, scene) -> dict:
+    """`root`'s merge (models/all.*) against the merge at `ref`: byte for
+    byte; if it differs, the first differing record logged, and the
+    count within 0.1% of `ref`'s and phase 11b's bars required."""
+    from cmvs_pmvs_tpu_torch.io.patches import read_patch_file
+    same = model_files(root, "all") == model_files(ref, "all")
+    out = {"identical": same}
+    if same:
+        log(f"{label}: the merge is byte-identical to {ref}'s")
+        return out
+    a = os.path.join(root, "models", "all.patch")
+    b = os.path.join(ref, "models", "all.patch")
+    log(f"{label}: the merge differs from {ref}'s; first difference: "
+        f"{first_patch_difference(a, b)}")
+    recs, want = read_patch_file(a), len(read_patch_file(b))
+    coord = np.array([r.coord[:3] for r in recs])
+    d = scene.surface_distance(coord) / np.array([r.dscale for r in recs])
+    med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
+    log(f"{label}: {len(recs)} merged patches against {want}, median "
+        f"{med:.4f} q90 {q90:.4f}")
+    if abs(len(recs) - want) > want / 1000 or not (med < 0.4 and q90 < 1.5):
+        raise AssertionError(f"{label}: the merge is off {ref}'s: "
+                             f"{len(recs)} against {want}, median {med}, "
+                             f"q90 {q90}")
+    return {**out, "n": len(recs), "median": med, "q90": q90}
+
+
+def fault_cluster_start(pipeline: dict, procs: list) -> dict:
+    """Phase 20(a), its start: pmvs3_all (`python -u -m
+    cmvs_pmvs_tpu_torch.cli.pmvs_all TREE`, on the card) on a copy of
+    11b's tree, and a thread (`kill_when`) that SIGKILLs it once the
+    first cluster's .done marker exists and it has logged that it
+    reconstructs the second; the caller works meanwhile."""
+    first, second = pipeline["names"][:2]
+    tree = fault_tree(pipeline["root"], "chip_smoke_fault_a")
+    done = os.path.join(tree, "models", first + ".done")
+    st = {"tree": tree, "src": pipeline["root"], "names": pipeline["names"],
+          "cmd": [sys.executable, "-u", "-m",
+                  "cmvs_pmvs_tpu_torch.cli.pmvs_all", tree],
+          "log": os.path.join(ROOT, "build", "chip_smoke_fault_a1.log")}
+    st["proc"] = spawn(st["cmd"], st["log"], procs)
+    st["kill"] = in_thread(
+        kill_when, st["proc"], st["log"], lambda: os.path.exists(done)
+        and f"[{second}] reconstructing" in tail(st["log"], 1 << 20),
+        f"{first}.done and {second} started")
+    return st
+
+
+def fault_cluster_rerun(st: dict, procs: list):
+    """Phase 20(a), once the kill landed: the second cluster must not
+    have finished; its files are truncated (their first 300 bytes of
+    11b's, what a kill during the write leaves) and the same command
+    runs again, in a thread (`run_to_end`)."""
+    import signal
+    st["killed_after_s"], st["kill_s"] = joined(st["kill"], FAULT_WAIT + 60)
+    first, second = st["names"][:2]
+    models = os.path.join(st["tree"], "models")
+    rc = st["proc"].returncode
+    if rc != -signal.SIGKILL or os.path.exists(
+            os.path.join(models, second + ".done")):
+        raise AssertionError(f"fault(a): the kill did not land while "
+                             f"{second} reconstructed: rc {rc}")
+    st["killed0"] = model_files(st["tree"], first,
+                                (".patch", ".ply", ".pset", ".done"))
+    for ext in (".patch", ".ply", ".pset"):
+        with open(os.path.join(st["src"], "models", second + ext),
+                  "rb") as f:
+            head = f.read(300)
+        with open(os.path.join(models, second + ext), "wb") as f:
+            f.write(head)
+    st["rerun"] = in_thread(run_to_end, st["cmd"], os.path.join(
+        ROOT, "build", "chip_smoke_fault_a2.log"), procs)
+
+
+def fault_cluster_check(st: dict, scene) -> dict:
+    """Phase 20(a), its end: the rerun exits 0, skips the first cluster
+    (its files as the killed run wrote them), reconstructs the second
+    and merges; the merge held to 11b's (`merged_against`)."""
+    first, second = st["names"][:2]
+    rc, rerun_s, out = joined(st["rerun"], FAULT_WAIT + 60)
+    summary = [ln for ln in out.splitlines() if " clusters, " in ln]
+    log(f"fault(a): killed {st['killed_after_s']:.2f} s after the start, "
+        f"{st['kill_s']:.3f} s from SIGKILL to exit (rc "
+        f"{st['proc'].returncode}; the killed run's last line "
+        f"{tail(st['log']).strip().splitlines()[-1][:120]!r}); the rerun: "
+        f"rc {rc}, {rerun_s:.2f} s, {summary}")
+    checks = {
+        "exit 0": rc == 0,
+        f"{first} skipped": f"[{first}] already complete, skipping" in out,
+        f"{second} reconstructed": f"[{second}] reconstructing" in out
+        and os.path.exists(os.path.join(st["tree"], "models",
+                                        second + ".done")),
+        "merged": "merged -> " in out,
+        f"{first} untouched": model_files(
+            st["tree"], first, (".patch", ".ply", ".pset", ".done"))
+        == st["killed0"]}
+    if not all(checks.values()):
+        raise AssertionError(f"fault(a): rerun checks {checks}:\n"
+                             f"{out[-3000:]}")
+    same = {n: model_files(st["tree"], n) == model_files(st["src"], n)
+            for n in st["names"]}
+    log(f"fault(a): per-cluster files byte-identical to 11b's: {same}")
+    merge = merged_against("fault(a)", st["tree"], st["src"], scene)
+    return {"kill_s": st["kill_s"], "rerun_s": rerun_s,
+            "identical": merge["identical"] and all(same.values())}
+
+
+def fault_torchrun_kill(pipeline: dict, a: dict, procs: list) -> dict:
+    """Phase 20(b), its kill: once (a)'s first cluster is done, a fresh
+    copy of the tree with that cluster's files and .done marker, under
+    `python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+    cmvs_pmvs_tpu_torch.cli.pmvs_all TREE` (2 ranks sharing the card over
+    gloo): rank 0 skips its cluster and waits at the merge barrier while
+    rank 1 reconstructs, and rank 1 is SIGKILLed there. The job must end
+    non-zero within 60 s, with no rank left and no merge. Returns the
+    command, the tree and the seconds from the kill to the job's end."""
+    import glob
+    import signal
+    import subprocess
+    names = pipeline["names"]
+    done = os.path.join(a["tree"], "models", names[0] + ".done")
+    wait_until(a["proc"], a["log"], lambda: os.path.exists(done),
+               f"{names[0]}.done")
+    tree = fault_tree(pipeline["root"], "chip_smoke_fault_b")
+    models = os.path.join(tree, "models")
+    for ext in (".patch", ".ply", ".pset", ".done"):
+        shutil.copy(os.path.join(a["tree"], "models", names[0] + ext),
+                    models)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "cmvs_pmvs_tpu_torch.cli.pmvs_all",
+           tree]
+    log1 = os.path.join(ROOT, "build", "chip_smoke_fault_b1.log")
+    line = f"[{names[1]}] reconstructing on process 1/2"
+    proc = spawn(cmd, log1, procs)
+    try:
+        wait_until(proc, log1, lambda: line in tail(log1, 1 << 20), line)
+        ranks = {int(proc_env(p).get("RANK", -1)): p
+                 for p in children(proc.pid)}
+        if sorted(ranks) != [0, 1]:
+            raise AssertionError(f"fault(b): torchrun's children {ranks}")
+        t_kill = time.monotonic()
+        os.kill(ranks[1], signal.SIGKILL)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"fault(b): the job still runs 60 s after "
+                                 f"rank 1's kill:\n{tail(log1)}") from None
+        exit_s = time.monotonic() - t_kill
+        left = [r for r, p in ranks.items() if alive(p)]
+    finally:
+        stop(proc)
+    out1 = tail(log1, 1 << 20)
+    merged = glob.glob(os.path.join(models, "all.*"))
+    log(f"fault(b): rank 1 killed; the job exited rc {proc.returncode} "
+        f"{exit_s:.3f} s later, ranks left {left}, merge files {merged}; "
+        f"rank 0 at the barrier: {'1 clusters, 0 patches' in out1}")
+    if proc.returncode == 0 or left or merged:
+        raise AssertionError(f"fault(b): rc {proc.returncode}, ranks left "
+                             f"{left}, merged {merged}:\n{out1[-3000:]}")
+    return {"cmd": cmd, "tree": tree, "exit_s": exit_s}
+
+
+def fault_torchrun_rerun(b: dict, procs: list) -> dict:
+    """Phase 20(b), its end: the same torchrun command again must exit 0
+    and merge (the caller holds the merge to (a)'s)."""
+    rc, rerun_s, out = run_to_end(
+        b["cmd"], os.path.join(ROOT, "build", "chip_smoke_fault_b2.log"),
+        procs)
+    summary = [ln for ln in out.splitlines() if " clusters, " in ln]
+    log(f"fault(b): the rerun: rc {rc}, {rerun_s:.2f} s, {summary}")
+    if rc != 0 or "merged -> " not in out:
+        raise AssertionError(f"fault(b): the rerun failed (rc {rc}):\n"
+                             f"{out[-3000:]}")
+    return {"rerun_s": rerun_s}
+
+
+def phase_fault_engine(pool, dev, scene, protocol5: dict,
+                       phase5_files: str) -> dict:
+    """Phase 20(c): on phase 5's scene and the process's graph cache, a
+    PMVSEngine runs one expand round and saves a checkpoint; a fresh one
+    loads it and runs rounds 2-3 (`run(start_iter=1)`), against phase
+    5's three-round cloud; then 2 ranks of `pool` resume the same
+    checkpoint under an engine mesh (`workers.resume_job`), checked as
+    phase 12(b) checks the sharded engine, against the one-rank resume.
+    Returns the resumed rounds' launches (the one rank's and the
+    ranks')."""
+    import torch
+    from cmvs_pmvs_tpu_torch.models.engine import PMVSEngine, load_scene
+    from cmvs_pmvs_tpu_torch.models.graphs import shared
+    from cmvs_pmvs_tpu_torch.parallel import workers
+    from cmvs_pmvs_tpu_torch.utils.options import PMVSOptions
+    _, root = write_scene("chip_smoke_fault_c", scene)
+    opt = PMVSOptions.parse(os.path.join(root, "option.txt"))
+    data = load_scene(root, opt, device=dev)
+    cache = shared(dev)
+    wrappers = kernel_wrappers()
+    before = cache.stats()
+    eng = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
+                     device=dev)
+    t0 = time.perf_counter()
+    eng.run(**{**PROTOCOL_RUN, "expand_iters": 1})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ckpt = os.path.join(root, "state.npz")
+    t0 = time.perf_counter()
+    eng.save_checkpoint(ckpt, iteration=1)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(ckpt)
+    del eng
+    mid = cache.stats()
+    fresh = PMVSEngine(data, opt, p_cap=200_000, log=lambda m: None,
+                       device=dev)
+    t0 = time.perf_counter()
+    it = fresh.load_checkpoint(ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    fresh.run(start_iter=it, **PROTOCOL_RUN)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    g_first = {k: mid[k] - before[k] for k in ("graphs", "replays")}
+    g_resume = cache.stats_since(mid)
+    fresh.write(os.path.join(root, "models", "option.txt"))
+    r = protocol_result(scene, fresh, root)
+    coord = np.sort(fresh.cloud.coord.cpu().numpy()[
+        fresh.cloud.alive.cpu().numpy()][:, :3], axis=0)
+    want = np.sort(protocol5["coord"], axis=0)
+    gap = float(np.abs(coord - want).max(initial=0.0)) \
+        if coord.shape == want.shape else math.inf
+    files_same = {ext: open(os.path.join(root, "models", "option.txt."
+                                         + ext), "rb").read()
+                  == open(os.path.join(phase5_files, "option.txt." + ext),
+                          "rb").read() for ext in ("patch", "ply", "pset")}
+    one = workers.state_digests(fresh)
+    one_stats = fresh.stats
+    log(f"fault(c): the first round {first_s:.2f} s (graphs {g_first}); "
+        f"checkpoint {ckpt_bytes} bytes, saved in {save_s:.3f} s, loaded "
+        f"in {load_s:.3f} s (iteration {it}); rounds 2-3 "
+        f"resumed in a fresh engine {resume_s:.2f} s, graphs captured "
+        f"{g_resume['captured']}, replayed {g_resume['run_replays']}; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    log(f"fault(c): resumed {r['n']} patches (phase 5: {protocol5['n']}), "
+        f"sorted coordinates at most {gap:.3g} apart, median "
+        f"{r['median']:.4f} q90 {r['q90']:.4f}; files byte-identical to "
+        f"phase 5's: {files_same}")
+    if not (it == 1 and r["n"] == protocol5["n"] and gap <= 1e-5
+            and protocol_bars(r)):
+        raise AssertionError(f"fault(c): the resumed cloud is off phase "
+                             f"5's: iteration {it}, {r}, gap {gap}")
+    if launches["incc_fan"] <= 0 or launches["windows"] <= 0:
+        raise AssertionError(f"fault(c): K1 and K2 not launched in the "
+                             f"resumed rounds: {launches}")
+    del fresh, data
+    # the ranks share the card: the process's cache gives its memory back
+    cache.clear()
+    t0 = time.perf_counter()
+    outs = pool.run(workers.resume_job, 2, root, "option.txt", ckpt,
+                    200_000, PROTOCOL_RUN)
+    mesh_s = time.perf_counter() - t0
+    d = scene.surface_distance(outs[0]["coord"][:, :3]) / outs[0]["dscale"]
+    med, q90 = float(np.median(d)), float(np.quantile(d, 0.9))
+    same = all(o["state"] == outs[0]["state"] for o in outs)
+    equal = outs[0]["state"] == one
+    n = outs[0]["count"]
+    log(f"fault(c): the checkpoint resumed on 2 ranks of an engine mesh in "
+        f"{mesh_s:.2f} s: {n} patches, median {med:.4f} q90 {q90:.4f}, "
+        f"ranks byte-identical: {same}, equal to the one-rank resume bit "
+        f"for bit: {equal} (fields that differ "
+        f"{[k for k in one if outs[0]['state'][k] != one[k]]}; the first "
+        f"stat that differs: "
+        f"{first_stats_difference(outs[0]['stats'], one_stats)}); "
+        f"{rank_line(outs)}")
+    if not same:
+        raise AssertionError("fault(c): the mesh ranks' clouds differ")
+    if abs(n - r["n"]) > r["n"] // 100 or not (
+            n >= 80_000 and med < 0.4 and q90 < 1.5) or any(
+            o["launches"]["incc_fan"] <= 0 or o["launches"]["windows"] <= 0
+            for o in outs):
+        raise AssertionError(f"fault(c): the mesh resume is off the "
+                             f"one-rank resume: {n} against {r['n']}, "
+                             f"median {med}, q90 {q90}, {rank_line(outs)}")
+    shutil.rmtree(root, ignore_errors=True)
+    ranks = summed_launches(outs)
+    return {"launches": {k: v + ranks[k] for k, v in launches.items()},
+            "ckpt_bytes": ckpt_bytes, "save_s": save_s, "load_s": load_s,
+            "identical": all(files_same.values()), "mesh_equal": equal}
+
+
+def phase_fault(pool, dev, scene, protocol5: dict, pipeline: dict,
+                phase5_files: str) -> dict:
+    """Phase 20: the recovery seams on the card - (a) a killed pmvs3_all
+    resumed from its .done markers, (b) a killed torchrun rank, (c) a
+    mid-run checkpoint resumed in a fresh engine and under an engine
+    mesh. (c) runs while (a)'s first process runs to its kill and, once
+    (a)'s first cluster is done, (b)'s job starts and is killed; (b)'s
+    rerun runs beside (a)'s. Every process started is stopped at the
+    end, whatever happened. Returns (c)'s launches (the one rank's and
+    the ranks')."""
+    t0 = time.time()
+    if len(pipeline["names"]) < 2:
+        raise AssertionError(f"fault: phase 11b gave {pipeline['names']}")
+    procs = []
+    a = fault_cluster_start(pipeline, procs)
+    b_kill = in_thread(fault_torchrun_kill, pipeline, a, procs)
+    try:
+        c = phase_fault_engine(pool, dev, scene, protocol5, phase5_files)
+        fault_cluster_rerun(a, procs)
+        b = joined(b_kill, FAULT_WAIT + 120)
+        b.update(fault_torchrun_rerun(b, procs))
+        a.update(fault_cluster_check(a, pipeline["scene"]))
+        b.update(merged_against("fault(b)", b["tree"], a["tree"],
+                                pipeline["scene"]))
+    finally:
+        for p in list(procs):
+            stop(p)
+        # (b)'s thread may still start its job until (a)'s process ends
+        b_kill["thread"].join(timeout=FAULT_WAIT + 120)
+        for p in list(procs):
+            stop(p)
+        for name in ("chip_smoke_fault_a", "chip_smoke_fault_b"):
+            shutil.rmtree(os.path.join(ROOT, "build", name),
+                          ignore_errors=True)
+    log(f"fault: phase 20 {time.time() - t0:.2f} s: (a) SIGKILL to exit "
+        f"{a['kill_s']:.3f} s, rerun {a['rerun_s']:.2f} s, byte-identical "
+        f"to 11b: {a['identical']}; (b) rank 1's SIGKILL to the job's exit "
+        f"{b['exit_s']:.3f} s, rerun {b['rerun_s']:.2f} s, merge "
+        f"byte-identical to (a)'s: {b['identical']}; (c) checkpoint "
+        f"{c['ckpt_bytes']} bytes, save {c['save_s']:.3f} s, load "
+        f"{c['load_s']:.3f} s, files byte-identical to phase 5's: "
+        f"{c['identical']}, the 2-rank mesh resume bit-equal to the "
+        f"one-rank resume: {c['mesh_equal']}")
+    return c["launches"]
+
+
+def phase_multi_rank(dev, scene, protocol5: dict, pipeline: dict,
+                     phase5_files: str) -> dict:
     """Phase 12: the multi-rank paths, ranks spawned once (4 processes
-    sharing the card: gloo for world > 1, NCCL for world 1)."""
+    sharing the card: gloo for world > 1, NCCL for world 1); then phase
+    20, whose mesh resume takes 2 of those ranks."""
     import torch
     from cmvs_pmvs_tpu_torch.parallel.launch import RankPool
     from cmvs_pmvs_tpu_torch.scripts import scaling_curve
@@ -1727,8 +2315,10 @@ def phase_multi_rank(dev, scene, protocol5: dict, pipeline: dict) -> dict:
         sc = scaling_curve.curve(pool)
         log(f"multi_rank: scaling curve (refinements/s by ranks sharing "
             f"the card) {json.dumps(sc)} ({time.time() - t1:.2f} s)")
+        log(f"multi_rank: phase 12 {time.time() - t0:.2f} s")
+        runs["fault"] = phase_fault(pool, dev, scene, protocol5, pipeline,
+                                    phase5_files)
     shutil.rmtree(store, ignore_errors=True)
-    log(f"multi_rank: phase 12 {time.time() - t0:.2f} s")
     return runs
 
 
@@ -2796,8 +3386,7 @@ def phase_scenes(dev, scene) -> dict:
     logger.addHandler(handler)
     level = logger.level
     logger.setLevel(logging.INFO)
-    scene_b = make_occluded_scene(num_cameras=12, width=640, height=480,
-                                  focal=700.0, seed=43)
+    scene_b = make_occluded_scene(**LATER_SCENES[0])
     _, root_a = write_scene("chip_smoke_scenes_a", scene)
     _, root_b = write_scene("chip_smoke_scenes_b", scene_b)
 
@@ -3005,8 +3594,7 @@ def phase_scenes(dev, scene) -> dict:
                           f"{med}, q90 {q90}")
         shutil.rmtree(root_c, ignore_errors=True)
         # (d)
-        scene_d = make_occluded_scene(num_cameras=10, width=640, height=480,
-                                      focal=700.0, seed=44)
+        scene_d = make_occluded_scene(**LATER_SCENES[1])
         _, root_d = write_scene("chip_smoke_scenes_d", scene_d)
         with open(os.path.join(root_d, "option.txt")) as f:
             opt_text = f.read()
@@ -3110,9 +3698,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    import torch
     t_script = time.time()
     smi = phase_device()
+    renders = share_scenes(LATER_SCENES)
+    try:
+        return run_phases(opts, smi, t_script)
+    finally:
+        renders.shutdown(cancel_futures=True)
+
+
+def run_phases(opts, smi: str, t_script: float) -> int:
+    """Phases 2-20 and the closing lines (see the module doc)."""
+    import torch
     from cmvs_pmvs_tpu_torch.ops import kernels
     t0 = time.time()
     kernels.lib()
@@ -3136,7 +3733,7 @@ def main() -> int:
     r = phase_protocol(dev, scene, root, "default", {},
                        need=("incc_fan", "windows"))
     runs["default"], n_default = r["launches"], r["n"]
-    protocol5 = {k: r[k] for k in ("n", "launches", "stats")}
+    protocol5 = {k: r[k] for k in ("n", "launches", "stats", "coord")}
     # phase 15b holds the graphed path's outputs to these
     phase5_files = os.path.join(ROOT, "build", "chip_smoke_phase5")
     shutil.rmtree(phase5_files, ignore_errors=True)
@@ -3170,7 +3767,8 @@ def main() -> int:
     # gives its memory back first
     from cmvs_pmvs_tpu_torch.models.graphs import shared
     shared(dev).clear()
-    runs.update(phase_multi_rank(dev, scene, protocol5, pipeline))
+    runs.update(phase_multi_rank(dev, scene, protocol5, pipeline,
+                                 phase5_files))
     shutil.rmtree(pipeline["root"], ignore_errors=True)
     t0 = time.time()
     variants = phase_variant_kernels(dev)

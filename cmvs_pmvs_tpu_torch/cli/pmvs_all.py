@@ -11,8 +11,11 @@ clusters on its own device (cuda:LOCAL_RANK), and rank 0 merges after
 a barrier, once every rank has written its clusters; otherwise the
 rank and world size of an initialised group, else 0 and 1. Clusters
 already marked done (models/option-%04d.done) are skipped. Process 0
-merges the clouds into models/all.{patch,pset,ply}. Runs on CUDA unless
---device says otherwise; with the default device and no CUDA it raises.
+merges the clouds into models/all.{patch,pset,ply}. The summary line
+gives the clusters and patches of this process and, on a card, the
+CUDA graphs its clusters captured and replayed (models/graphs.shared).
+Runs on CUDA unless --device says otherwise; with the default device
+and no CUDA it raises.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu only on request)")
     args = ap.parse_args(argv)
     import torch.distributed as dist
+    from ..models.graphs import shared
     from ..parallel import comm
     from ..parallel.clusters import (merge_models, process_topology,
                                      run_clusters)
@@ -45,7 +49,12 @@ def main(argv=None) -> int:
         pidx, pcnt = process_topology()
     runs = run_clusters(args.prefix, process_index=pidx, process_count=pcnt,
                         checkpoint=True, device=device)
-    print(f"{len(runs)} clusters, {sum(r.patches for r in runs)} patches")
+    cache = shared(device) if any(not r.skipped for r in runs) else None
+    graphs = "" if cache is None else (
+        "; CUDA graphs {graphs} captured, {replays} replayed"
+        .format(**cache.stats()))
+    print(f"{len(runs)} clusters, {sum(r.patches for r in runs)} "
+          f"patches{graphs}")
     if joined:
         dist.barrier()
     if not args.no_merge and pidx == 0:

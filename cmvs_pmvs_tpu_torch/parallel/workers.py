@@ -116,6 +116,51 @@ def cloud_digest(cloud) -> str:
     return h.hexdigest()
 
 
+def state_digests(eng) -> dict:
+    """sha256 of each field of an engine's cloud and grid, all rows, by
+    "cloud.<field>" / "grid.<field>"."""
+    return {f"{label}.{f.name}": hashlib.sha256(
+        getattr(o, f.name).cpu().contiguous().numpy().tobytes()).hexdigest()
+        for label, o in (("cloud", eng.cloud), ("grid", eng.grid))
+        for f in dataclasses.fields(o)}
+
+
+def resume_job(dev, root: str, option: str, ckpt: str, p_cap: int,
+               run_kwargs: dict) -> dict:
+    """A checkpoint (`PMVSEngine.save_checkpoint`, one rank's or a
+    mesh's) resumed by the data-parallel engine: on every rank a
+    PMVSEngine on the scene at `root` under `make_engine_mesh()` loads
+    `ckpt` and runs `run_kwargs` from the checkpoint's iteration, on the
+    process's graph cache (given back after). Returns the iteration, the
+    state's field digests (`state_digests`), count, capacity, stats,
+    launches and seconds; rank 0 also the alive rows' coord and
+    dscale."""
+    from ..models.engine import PMVSEngine, load_scene
+    from ..models.graphs import shared
+    from ..utils.options import PMVSOptions
+    from .engine_shard import make_engine_mesh
+    mesh = make_engine_mesh()
+    opt = PMVSOptions.parse(os.path.join(root, option))
+    eng = PMVSEngine(load_scene(root, opt, device=dev), opt, p_cap=p_cap,
+                     device=dev, mesh=mesh, **_QUIET)
+    try:
+        it = eng.load_checkpoint(ckpt)
+        _zero_launches()
+        t0 = time.time()
+        eng.run(start_iter=it, **run_kwargs)
+        out = _report(dev, t0)
+        alive = eng.cloud.alive.cpu().numpy()
+        out.update(iteration=it, state=state_digests(eng),
+                   count=int(alive.sum()), p_cap=eng.p_cap, stats=eng.stats)
+        if mesh.patch == 0:
+            out.update(coord=eng.cloud.coord.cpu().numpy()[alive],
+                       dscale=eng.cloud.dscale.cpu().numpy()[alive])
+        return out
+    finally:
+        if dev.type == "cuda":
+            shared(dev).clear()
+
+
 def mesh_job(dev, view_parallel: int) -> dict:
     """This rank's (patch, view) mesh place and its groups' ranks."""
     from .sharding import make_mesh

@@ -46,7 +46,8 @@ def test_every_port_module_imports_without_jax():
 
 def _port_sources():
     base = os.path.join(ROOT, "cmvs_pmvs_tpu_torch")
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "_torch_fault_worker.py")]
     for dirpath, _, files in os.walk(base):
         paths += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
     out = {}
