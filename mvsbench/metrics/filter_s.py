@@ -1,0 +1,12 @@
+"""filter_s: seconds of the engine's filter spans a reconstruction."""
+from mvsbench.readers import per_recon, span_seconds
+
+UNIT = "s"
+LAYER = "models/filter"
+MOVES = "recon_s"
+
+
+def read(ctx):
+    if not ctx.get("trace"):
+        return None
+    return per_recon(ctx, lambda r: span_seconds(r, "filter"))
