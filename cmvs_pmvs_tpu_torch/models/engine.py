@@ -28,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-import time
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -112,38 +111,45 @@ def compute_distances(cams: CameraSet) -> np.ndarray:
         np.float32)
 
 
-def load_scene(prefix: str, opt: PMVSOptions, device="cuda") -> SceneData:
+def load_scene(prefix: str, opt: PMVSOptions, device="cuda",
+               tracer: Tracer | None = None) -> SceneData:
     """Read images/cameras of timages+oimages and build the pyramids
-    (CPhotoSetS::init, photoSetS.cpp:12-77; maxLevel = level + 3)."""
+    (CPhotoSetS::init, photoSetS.cpp:12-77; maxLevel = level + 3), in
+    `tracer`'s blocking span `load` (children `images`, `pyramid`)."""
+    tr = tracer if tracer is not None else Tracer(enabled=False)
     dev = resolve_device(device)
-    opt = opt.resolve_oimages(prefix)
-    ids = list(opt.timages) + list(opt.oimages)
-    images, masks, Ps = [], [], []
-    for img_id in ids:
-        path = find_image_path(os.path.join(prefix, "visualize"), img_id)
-        if path is None:
-            raise FileNotFoundError(
-                f"no image for id {img_id} under {prefix}/visualize")
-        images.append(load_image(path))
-        mpath = find_image_path(os.path.join(prefix, "masks"), img_id,
-                                exts=(".pgm", ".pbm", ".png"))
-        masks.append(load_pgm_mask(mpath) if mpath else None)
-        Ps.append(read_camera_txt(
-            os.path.join(prefix, "txt", "%08d.txt" % img_id)))
-    cams = build_camera_set(np.stack(Ps), device=dev)
-    any_mask = any(m is not None for m in masks)
-    pyr = build_pyramids(images, masks if any_mask else None,
-                         opt.level + 3, device=dev)
-    if opt.set_edge != 0.0:
-        pyr = set_edge(pyr, images, opt.set_edge)
-    n = len(ids)
-    vis = np.zeros((n, n), bool)
-    for y, row in enumerate(build_visdata(opt, prefix)):
-        vis[y, row] = True
-    return SceneData(cams=cams, pyr=pyr, images=images, image_ids=ids,
-                     visdata=torch.as_tensor(vis, device=dev),
-                     distances=torch.as_tensor(compute_distances(cams),
-                                               device=dev))
+    with tr.span("load", block=True):
+        opt = opt.resolve_oimages(prefix)
+        ids = list(opt.timages) + list(opt.oimages)
+        images, masks, Ps = [], [], []
+        with tr.span("images"):
+            for img_id in ids:
+                path = find_image_path(os.path.join(prefix, "visualize"),
+                                       img_id)
+                if path is None:
+                    raise FileNotFoundError(
+                        f"no image for id {img_id} under {prefix}/visualize")
+                images.append(load_image(path))
+                mpath = find_image_path(os.path.join(prefix, "masks"),
+                                        img_id, exts=(".pgm", ".pbm", ".png"))
+                masks.append(load_pgm_mask(mpath) if mpath else None)
+                Ps.append(read_camera_txt(
+                    os.path.join(prefix, "txt", "%08d.txt" % img_id)))
+        cams = build_camera_set(np.stack(Ps), device=dev)
+        any_mask = any(m is not None for m in masks)
+        with tr.span("pyramid"):
+            pyr = build_pyramids(images, masks if any_mask else None,
+                                 opt.level + 3, device=dev)
+            if opt.set_edge != 0.0:
+                pyr = set_edge(pyr, images, opt.set_edge)
+        n = len(ids)
+        vis = np.zeros((n, n), bool)
+        for y, row in enumerate(build_visdata(opt, prefix)):
+            vis[y, row] = True
+        return SceneData(cams=cams, pyr=pyr, images=images, image_ids=ids,
+                         visdata=torch.as_tensor(vis, device=dev),
+                         distances=torch.as_tensor(compute_distances(cams),
+                                                   device=dev))
 
 
 class PMVSEngine:
@@ -309,17 +315,17 @@ class PMVSEngine:
                                    refine_iters, filters=filters)
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
         tr = self.tracer
-        t0 = time.time()
+        t0 = tr.seconds()
         with tr.span("detect", block=True):
             feats = self.features()
             nfeat = int(feats["valid"].sum())
         tr.add_counter("detect", "features", nfeat)
-        self.log(f"features: {nfeat} ({time.time() - t0:.1f}s)")
+        self.log(f"features: {nfeat} ({tr.seconds() - t0:.1f}s)")
 
         ref_views, rv_valid = collect_images_all(
             cams, self.scene.visdata, self.scene.distances, cfg.tau,
             cfg.sequence)
-        t1 = time.time()
+        t1 = tr.seconds()
         with tr.span("seed", block=True):
             def ensure(needed: int):
                 headroom = self._agreed(int(self.cloud.count()) + needed)
@@ -333,7 +339,7 @@ class PMVSEngine:
                 ensure_capacity=ensure, mesh=self.mesh, graphs=self.graphs)
             nseed, sdrop = self._read(self.cloud.count(), sdrop)
         tr.add_counter("seed", "patches", nseed)
-        self.log(f"seed: {nseed} patches ({time.time() - t1:.1f}s)")
+        self.log(f"seed: {nseed} patches ({tr.seconds() - t1:.1f}s)")
         self._check_capacity(sdrop, nseed)
         self._refresh(nseed)
         return self._run_iters(0, expand_iters, max_waves, refine_iters,
@@ -356,8 +362,10 @@ class PMVSEngine:
                    max_waves: int, refine_iters: int,
                    t0: float | None = None,
                    filters: bool = True) -> PatchCloud:
-        """The expand/filter rounds (reference engine.py:334-501)."""
-        t0 = time.time() if t0 is None else t0
+        """The expand/filter rounds (reference engine.py:334-501); `t0`
+        the tracer's seconds (Tracer.seconds) the logged total counts
+        from."""
+        t0 = self.tracer.seconds() if t0 is None else t0
         if start_iter > 0:
             self._refresh(self._read(self.cloud.count())[0])
         for it in range(start_iter, expand_iters):
@@ -368,7 +376,7 @@ class PMVSEngine:
                     "iter": it, "new": new, "view_drops": vdrops})
             self.thr = self.thr.relaxed()
         self.log(f"total: {self._read(self.cloud.count())[0]} patches "
-                 f"({time.time() - t0:.1f}s)")
+                 f"({self.tracer.seconds() - t0:.1f}s)")
         return self.cloud
 
     def _expand_round(self, it: int, max_waves: int, refine_iters: int):
@@ -378,7 +386,7 @@ class PMVSEngine:
         lost to the t_store cap)."""
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
         tr = self.tracer
-        t2 = time.time()
+        t2 = tr.seconds()
         frontier = self.cloud.alive.clone()
         total_new = total_vdrops = 0
         f_n, n_alive = self._read(frontier.sum(), self.cloud.count())
@@ -392,17 +400,19 @@ class PMVSEngine:
             cap_d = self._cap_bucket(n_alive)
             fbudget = _bucket15(f_n, cap_d)
             with tr.span("expand", block=True):
-                if self.mesh is None:
-                    disc = expand_discover(cams, pyr, cfg, self.thr,
-                                           self._slice(cap_d), self.grid,
-                                           frontier[:cap_d], slack, fbudget,
-                                           graphs=self.graphs)
-                else:
-                    disc = expand_discover_sharded(
-                        cams, pyr, cfg, self.thr, self._slice(cap_d),
-                        self.grid, frontier[:cap_d], slack, fbudget,
-                        self.mesh, graphs=self.graphs)
-                ncand, oflow_n = self._read(disc.ncand, disc.overflow.sum())
+                with tr.span("discover"):
+                    if self.mesh is None:
+                        disc = expand_discover(
+                            cams, pyr, cfg, self.thr, self._slice(cap_d),
+                            self.grid, frontier[:cap_d], slack, fbudget,
+                            graphs=self.graphs)
+                    else:
+                        disc = expand_discover_sharded(
+                            cams, pyr, cfg, self.thr, self._slice(cap_d),
+                            self.grid, frontier[:cap_d], slack, fbudget,
+                            self.mesh, graphs=self.graphs)
+                    ncand, oflow_n = self._read(disc.ncand,
+                                                disc.overflow.sum())
                 if ncand == 0:
                     frontier = self._widen(disc.overflow, self.p_cap)
                     f_n = oflow_n
@@ -419,20 +429,24 @@ class PMVSEngine:
                 if cap_b != cap_d:
                     disc = disc._replace(
                         overflow=self._widen(disc.overflow, cap_b))
-                cb, self.grid, fr, st = expand_commit(
-                    cams, pyr, cfg, self.thr, self.scene.visdata,
-                    self._slice(cap_b), self.grid, disc, cbudget,
-                    refine_iters=refine_iters, mesh=self.mesh,
-                    graphs=self.graphs)
-                self._paste(cb, cap_b)
-                frontier = self._widen(fr, self.p_cap)
-                self._check_agreement(f"it{it} wave{wave}'s commit")
-                acc, vdrops, dropped, frn = self._read(
-                    st.accepted, st.view_drops, st.dropped, fr.sum())
+                with tr.span("commit"):
+                    cb, self.grid, fr, st = expand_commit(
+                        cams, pyr, cfg, self.thr, self.scene.visdata,
+                        self._slice(cap_b), self.grid, disc, cbudget,
+                        refine_iters=refine_iters, mesh=self.mesh,
+                        graphs=self.graphs)
+                    self._paste(cb, cap_b)
+                    frontier = self._widen(fr, self.p_cap)
+                    self._check_agreement(f"it{it} wave{wave}'s commit")
+                    acc, vdrops, dropped, frn = self._read(
+                        st.accepted, st.view_drops, st.dropped, fr.sum())
             total_new += acc
             total_vdrops += vdrops
             tr.add_counter("expand", "accepted", acc)
             tr.add_counter("expand", "candidates", ncand)
+            # the refine rows run and those holding a candidate
+            tr.add_counter("expand", "batch_used", min(ncand, COMMIT_CAP))
+            tr.add_counter("expand", "batch_rows", cbudget)
             n_alive += acc - dropped
             self._check_capacity(dropped, n_alive)
             self.log(f"  it{it} wave{wave}: +{acc} (cand {ncand}, "
@@ -442,7 +456,7 @@ class PMVSEngine:
             if acc == 0 and frn == 0:
                 break
         self.log(f"expand it{it}: +{total_new} -> {n_alive} "
-                 f"({time.time() - t2:.1f}s)")
+                 f"({tr.seconds() - t2:.1f}s)")
         return n_alive, total_new, total_vdrops
 
     def _filter_round(self, it: int, n_alive: int, stats: dict):
@@ -453,7 +467,7 @@ class PMVSEngine:
         stats; `stats` (the round's expand figures) is completed and kept
         in `self.stats`."""
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
-        t3 = time.time()
+        t3 = self.tracer.seconds()
         cap_b = self._cap_bucket(n_alive)
         with self.tracer.span("filter", block=True):
             if self.mesh is None:
@@ -473,7 +487,8 @@ class PMVSEngine:
             (self.grid.vocc - cfg.cell_k).clamp(min=0).sum())
         msg = ", ".join(f"{k} {vals[2 * i]}->{vals[2 * i + 1]}"
                         for i, k in enumerate(fstats))
-        self.log(f"filter it{it}: {msg} ({time.time() - t3:.1f}s)")
+        self.log(f"filter it{it}: {msg} "
+                 f"({self.tracer.seconds() - t3:.1f}s)")
         pdrop, cell_trunc, vcell_trunc = vals[-3:]
         if pdrop:
             self.log(f"WARNING: filterNeighbor dropped {pdrop} pairs "
@@ -491,29 +506,32 @@ class PMVSEngine:
         """The one-rank filter stage on the prefix `cap_b`: pre, one read
         of the neighbour pair count, then post at a `_bucket15` pair
         budget or, past MAX_PAIRS_PER_PASS pairs, the chunked neighbour
-        pass (a read per chunk) and tail. Returns (cloud, grid, stats,
-        pairs dropped, the budget's description)."""
+        pass (a read per chunk) and tail, in the spans `pre` and `post`
+        (blocking). Returns (cloud, grid, stats, pairs dropped, the
+        budget's description)."""
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
-        g = self.graphs
-        cb, grid, fstats = run_filters_pre(cams, pyr, cfg, self.thr,
-                                           self._slice(cap_b), self.grid,
-                                           graphs=g)
-        need = self._read(count_neighbor_pairs(cfg, cb, graphs=g))[0]
-        if need > MAX_PAIRS_PER_PASS:
-            n0 = cb.count()
-            cb, pdrop = filter_neighbor_chunked(
-                cams, cfg, self.thr, cb, need, graphs=g,
-                read=lambda v: self._read(v)[0])
-            fstats["neighbor"] = (n0, cb.count())
-            cb, grid, tail = run_filters_tail(cams, pyr, cfg, self.thr, cb,
-                                              grid, graphs=g)
-            budget = "chunked exact budgets"
-        else:
-            pb = _bucket15(max(need, 1024), MAX_PAIRS_PER_PASS)
-            cb, grid, tail = run_filters_post(cams, pyr, cfg, self.thr, cb,
-                                              grid, pb, graphs=g)
-            pdrop = tail.pop("pairs_dropped")[0]
-            budget = f"budget {pb}"
+        g, tr = self.graphs, self.tracer
+        with tr.span("pre"):
+            cb, grid, fstats = run_filters_pre(cams, pyr, cfg, self.thr,
+                                               self._slice(cap_b), self.grid,
+                                               graphs=g)
+            need = self._read(count_neighbor_pairs(cfg, cb, graphs=g))[0]
+        with tr.span("post", block=True):
+            if need > MAX_PAIRS_PER_PASS:
+                n0 = cb.count()
+                cb, pdrop = filter_neighbor_chunked(
+                    cams, cfg, self.thr, cb, need, graphs=g,
+                    read=lambda v: self._read(v)[0])
+                fstats["neighbor"] = (n0, cb.count())
+                cb, grid, tail = run_filters_tail(cams, pyr, cfg, self.thr,
+                                                  cb, grid, graphs=g)
+                budget = "chunked exact budgets"
+            else:
+                pb = _bucket15(max(need, 1024), MAX_PAIRS_PER_PASS)
+                cb, grid, tail = run_filters_post(cams, pyr, cfg, self.thr,
+                                                  cb, grid, pb, graphs=g)
+                pdrop = tail.pop("pairs_dropped")[0]
+                budget = f"budget {pb}"
         fstats.update(tail)
         return cb, grid, fstats, pdrop, budget
 
@@ -525,19 +543,21 @@ class PMVSEngine:
 
     def _refresh(self, n_alive: int):
         """refresh_visibility on the prefix that holds the `n_alive`
-        alive rows (after the seed, and on resume)."""
+        alive rows (after the seed, and on resume), in the blocking span
+        `refresh`."""
         cams, pyr, cfg = self.scene.cams, self.scene.pyr, self.cfg
         cap_b = self._cap_bucket(n_alive)
-        if self.mesh is None:
-            cb, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
-                                               self._slice(cap_b),
-                                               self.grid)
-        else:
-            cb, self.grid = refresh_visibility_sharded(
-                cams, pyr, cfg, self.thr, self._slice(cap_b), self.grid,
-                self.mesh, graphs=self.graphs)
-        self._paste(cb, cap_b)
-        self._check_agreement("the visibility refresh")
+        with self.tracer.span("refresh", block=True):
+            if self.mesh is None:
+                cb, self.grid = refresh_visibility(cams, pyr, cfg, self.thr,
+                                                   self._slice(cap_b),
+                                                   self.grid)
+            else:
+                cb, self.grid = refresh_visibility_sharded(
+                    cams, pyr, cfg, self.thr, self._slice(cap_b), self.grid,
+                    self.mesh, graphs=self.graphs)
+            self._paste(cb, cap_b)
+            self._check_agreement("the visibility refresh")
 
     # ---- checkpoint / resume: the reference package's npz layout ----
     def save_checkpoint(self, path: str, iteration: int = 0):
@@ -558,26 +578,38 @@ class PMVSEngine:
 
     # ---- output (patchOrganizerS.cpp:89-132, 687-779) ----
     def write(self, prefix: str, ply=True, patch=True, pset=True):
-        cloud = self.cloud
-        idx = torch.nonzero(cloud.alive).flatten()
-        host = {f.name: getattr(cloud, f.name)[idx].cpu().numpy()
-                for f in dataclasses.fields(cloud)}
-        coord, normal = host["coord"], host["normal"]
-        if ply:
-            write_patch_ply(prefix + ".ply", coord[:, :3], normal[:, :3],
-                            colors=self._patch_colors(idx),
-                            quality=host["ncc"])
-        if pset:
-            write_pset(prefix + ".pset", coord[:, :3], normal[:, :3])
-        if patch:
-            ids = np.asarray(self.scene.image_ids)
+        """The alive patches to <prefix>.ply, .pset and .patch, in the
+        tracer's span `write` (children `fetch`, `colors`, `ply`, `pset`,
+        `patch`; counter `patches`)."""
+        cloud, tr = self.cloud, self.tracer
+        with tr.span("write"):
+            with tr.span("fetch"):
+                idx = torch.nonzero(cloud.alive).flatten()
+                host = {f.name: getattr(cloud, f.name)[idx].cpu().numpy()
+                        for f in dataclasses.fields(cloud)}
+            coord, normal = host["coord"], host["normal"]
+            if ply:
+                with tr.span("colors"):
+                    colors = self._patch_colors(idx)
+                with tr.span("ply"):
+                    write_patch_ply(prefix + ".ply", coord[:, :3],
+                                    normal[:, :3], colors=colors,
+                                    quality=host["ncc"])
+            if pset:
+                with tr.span("pset"):
+                    write_pset(prefix + ".pset", coord[:, :3], normal[:, :3])
+            if patch:
+                ids = np.asarray(self.scene.image_ids)
 
-            def on_disk(v):
-                return np.where(v >= 0, ids[np.maximum(v, 0)], -1)
-            write_patch_arrays(prefix + ".patch", coord, normal,
-                               host["ncc"], host["dscale"], host["ascale"],
-                               on_disk(host["images"]),
-                               on_disk(host["vimages"]))
+                def on_disk(v):
+                    return np.where(v >= 0, ids[np.maximum(v, 0)], -1)
+                with tr.span("patch"):
+                    write_patch_arrays(prefix + ".patch", coord, normal,
+                                       host["ncc"], host["dscale"],
+                                       host["ascale"],
+                                       on_disk(host["images"]),
+                                       on_disk(host["vimages"]))
+        tr.add_counter("write", "patches", len(coord))
 
     def _patch_colors(self, idx) -> np.ndarray:
         """Mean projected colour over a patch's images
@@ -596,7 +628,7 @@ class PMVSEngine:
 
 
 def reconstruct(prefix: str, option_name: str, p_cap: int = 200_000,
-                log=print, profile_dir: str | None = None, device="cuda",
+                log=print, device="cuda",
                 mesh=None, graphs: bool | RefineGraphs | None = None,
                 **run_kwargs) -> PMVSEngine:
     """pmvs3 entry: load, run, write models/<option> (pmvs.cpp:7-63).
@@ -608,15 +640,16 @@ def reconstruct(prefix: str, option_name: str, p_cap: int = 200_000,
     captured; False: op by op). That cache keeps its graphs' memory pool
     and resident scenes after the call returns, dropping some only to
     make room for a capture (models/graphs); a caller that needs the
-    memory back calls `models.graphs.shared(device).clear()`."""
+    memory back calls `models.graphs.shared(device).clear()`. The spans
+    (load, the engine's phases, write) go to the engine's tracer and are
+    written beside the outputs as <option>.trace.json."""
     dev = resolve_device(device)
+    tracer = Tracer()
     opt = PMVSOptions.parse(os.path.join(prefix, option_name))
-    scene = load_scene(prefix, opt, device=dev)
-    tracer = Tracer(profile_dir=profile_dir)
+    scene = load_scene(prefix, opt, device=dev, tracer=tracer)
     engine = PMVSEngine(scene, opt, p_cap=p_cap, log=log, tracer=tracer,
                         device=dev, mesh=mesh, graphs=graphs)
-    with tracer.trace():
-        engine.run(**run_kwargs)
+    engine.run(**run_kwargs)
     if mesh is not None and mesh.patch != 0:
         return engine
     out = os.path.join(prefix, "models", option_name)

@@ -219,10 +219,7 @@ def profile(root: str, setup: Setup, device="cuda", trials: int = 1,
             profiling.sync(dev)
             total = time.perf_counter() - t0
     n = int(eng.cloud.count())
-    phases = {}
-    for name, sp in eng.tracer.spans.items():
-        top = name.split(".")[0]
-        phases[top] = phases.get(top, 0.0) + sp.seconds
+    phases = profiling.phase_seconds(eng)
     out = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
            else "cpu", "seconds": total, "patches": n,
            "patches_per_sec": n / total, "functions": times,

@@ -213,6 +213,13 @@ def format_summary(s: dict, top: int = 30) -> str:
     return "\n".join(lines)
 
 
+def phase_seconds(eng) -> dict:
+    """An engine run's seconds by top-level span (detect, seed, refresh,
+    expand, filter); a child's seconds are in its parent's."""
+    return {name: sp.seconds for name, sp in eng.tracer.spans.items()
+            if "." not in name}
+
+
 class PhaseTracer(Tracer):
     """A Tracer that captures torch.profiler (CPU, and CUDA where
     present) around the first instance of each top-level span named in

@@ -47,7 +47,7 @@ from ..device import resolve_device
 from ..ops.kernels import launch_counts, launches_since
 from . import ablate_common
 from .profile_e2e import FULL, Setup, write_tree
-from .profiling import sync
+from .profiling import phase_seconds, sync
 
 MIN_PATCHES, MAX_MEDIAN, MAX_Q90 = 80_000, 0.4, 1.5
 
@@ -62,16 +62,6 @@ def card(dev) -> str:
     except (OSError, subprocess.CalledProcessError):
         return (f"{torch.cuda.get_device_name(dev)} (power limit not read: "
                 f"no nvidia-smi)")
-
-
-def phase_seconds(eng) -> dict:
-    """An engine run's seconds by top-level span (detect, seed, expand,
-    filter)."""
-    phases: dict = {}
-    for span, sp in eng.tracer.spans.items():
-        top = span.split(".")[0]
-        phases[top] = phases.get(top, 0.0) + sp.seconds
-    return phases
 
 
 def accuracy(scene, cloud) -> tuple:

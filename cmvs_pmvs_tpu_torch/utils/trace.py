@@ -1,17 +1,18 @@
 """Per-phase timing spans for the port.
 
-Each phase is a named span: wall time, call count and counters; spans
-nest (dotted names) and export as JSON (`report`, `write`, `summary`),
-as the reference package's `utils/trace.Tracer` does.
-`span(block=True)` synchronizes the CUDA stream at exit so queued
-kernels land in the phase that launched them; every span is a
-`torch.profiler.record_function` range, and `trace()` captures a
-`torch.profiler` trace (`trace.json`) when a profile directory is set.
+Each phase is a named span: wall time (`time.perf_counter`), call count
+and counters; spans nest (dotted names, a parent's seconds including its
+children's) and export as JSON (`report`, `write`, `summary`), as the
+reference package's `utils/trace.Tracer` does. `span(block=True)`
+synchronizes the CUDA stream before the span ends, so queued kernels
+land in the phase that launched them. Every span is a
+`torch.profiler.record_function` range under its dotted name, the
+synchronize inside it, so a profiler started by the caller finds each
+span on the device trace's clock.
 """
 from __future__ import annotations
 
 import json
-import os
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -28,19 +29,19 @@ class Span:
 
 
 class Tracer:
-    """Hierarchical phase timer with optional torch.profiler capture.
+    """Hierarchical phase timer.
 
     Usage:
-        tracer = Tracer(profile_dir="/tmp/prof")  # dir optional
-        with tracer.trace():
-            with tracer.span("seed"):
-                ...
-            tracer.add_counter("seed", "patches", 123)
+        tracer = Tracer()
+        with tracer.span("seed"):
+            ...
+        tracer.add_counter("seed", "patches", 123)
         tracer.report()  # -> dict; tracer.write(path) -> json file
+
+    A disabled tracer times and counts nothing.
     """
 
-    def __init__(self, profile_dir: str | None = None, enabled: bool = True):
-        self.profile_dir = profile_dir
+    def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self.spans: dict[str, Span] = {}
         self._order: list[str] = []
@@ -54,43 +55,37 @@ class Tracer:
         return sp
 
     @contextmanager
-    def trace(self):
-        if not self.enabled or self.profile_dir is None:
-            yield self
-            return
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        os.makedirs(self.profile_dir, exist_ok=True)
-        with torch.profiler.profile(activities=acts) as prof:
-            yield self
-        prof.export_chrome_trace(
-            os.path.join(self.profile_dir, "trace.json"))
-
-    @contextmanager
     def span(self, name: str, block: bool = False):
         """Time a phase; nested spans get dotted names. `block=True`
-        synchronizes CUDA at exit (a no-op without CUDA)."""
+        synchronizes CUDA before the span ends (a no-op without CUDA)."""
         if not self.enabled:
             yield
             return
         full = ".".join(self._stack + [name])
         self._stack.append(name)
-        t0 = time.time()
+        t0 = time.perf_counter()
         try:
             with torch.profiler.record_function(full):
                 yield
-            if block and torch.cuda.is_available():
-                torch.cuda.synchronize()
+                if block and torch.cuda.is_available():
+                    torch.cuda.synchronize()
         finally:
             self._stack.pop()
             sp = self._get(full)
-            sp.seconds += time.time() - t0
+            sp.seconds += time.perf_counter() - t0
             sp.count += 1
 
     def add_counter(self, span_name: str, key: str, value):
+        if not self.enabled:
+            return
         sp = self._get(span_name)
         sp.counters[key] = sp.counters.get(key, 0) + value
+
+    def seconds(self) -> float:
+        """Seconds of every top-level span so far (a difference of two
+        readings is the top-level spans' time between them)."""
+        return sum(sp.seconds for n, sp in self.spans.items()
+                   if "." not in n)
 
     def report(self) -> dict:
         return {n: {"seconds": round(self.spans[n].seconds, 4),

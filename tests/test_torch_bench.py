@@ -218,8 +218,8 @@ def test_bench_scene_matches_jax(jax_scene, main_run):
     assert ours["e2e_steady"] and theirs["e2e_steady"]
     nj, n = theirs["e2e_patches"], ours["e2e_patches"]
     assert nj > 50 and abs(n - nj) <= 0.1 * nj, (n, nj)
-    assert set(ours["e2e_phase_seconds"]) == {"detect", "seed", "expand",
-                                              "filter"}
+    assert set(ours["e2e_phase_seconds"]) == {"detect", "seed", "refresh",
+                                              "expand", "filter"}
     assert ours["e2e_cold_graphs"] is None and ours["e2e_graphs"] is None
     assert ours["e2e_launches"] == {}
     assert ours["e2e_median"] < 0.4

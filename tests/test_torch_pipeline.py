@@ -86,3 +86,28 @@ def test_outputs_read_back(recon):
     assert all(0 <= i < 5 for p in patches for i in p.images)
     np.testing.assert_allclose(coords, cloud["coord"][:, :3], atol=1e-5)
     assert os.path.exists(base + ".trace.json")
+
+
+SPANS = {"load": ("images", "pyramid"), "detect": (), "seed": (),
+         "refresh": (), "expand": ("discover", "commit"),
+         "filter": ("pre", "post"),
+         "write": ("fetch", "colors", "ply", "pset", "patch")}
+
+
+def test_spans_cover_the_job(recon):
+    """reconstruct's spans: load, the engine's phases and write at the
+    top, each step inside them a child taking no more than its parent;
+    the refine rows counted in expand, the written patches in write."""
+    _, out = recon
+    _, eng, cloud = out["torch"]
+    rep, sec = eng.tracer.report(), {
+        n: sp.seconds for n, sp in eng.tracer.spans.items()}
+    assert set(rep) == set(SPANS) | {f"{top}.{kid}" for top, kids in
+                                     SPANS.items() for kid in kids}
+    for top, kids in SPANS.items():
+        assert sum(sec[f"{top}.{k}"] for k in kids) <= sec[top], top
+    ex = rep["expand"]
+    assert 0 < ex["batch_used"] <= ex["batch_rows"]
+    assert ex["batch_used"] >= ex["accepted"]
+    assert rep["write"]["patches"] == len(cloud["coord"])
+    assert rep["refresh"]["count"] == 1

@@ -178,8 +178,10 @@ def test_verify_passes(plane_runs):
 
 def test_profile_e2e_counts_match_jax_phases(plane_runs):
     """profile_e2e at verify_e2e's depth (expand_iters 1, max_waves 2)
-    wraps the same seed/expand functions the JAX engine calls, as often,
-    and the engines' spans agree in name and count."""
+    wraps the same seed/expand functions the JAX engine calls, as often;
+    every span of the JAX engine is the port's, as often, and the port's
+    own spans (the refresh, the steps inside expand and filter) are
+    there."""
     p, jeng = plane_runs["profile"], plane_runs["jax"]
     calls = {k: n for k, (_, n) in p["functions"].items()}
     assert set(calls) == set(COUNTED) | {
@@ -187,7 +189,17 @@ def test_profile_e2e_counts_match_jax_phases(plane_runs):
         "run_filters_post"}
     assert {k: calls[k] for k in COUNTED} == plane_runs["jax_counts"]
     jspans = {k: v["count"] for k, v in jeng.tracer.report().items()}
-    assert p["phase_counts"] == jspans
+    counts = p["phase_counts"]
+    assert {k: counts.get(k) for k in jspans} == jspans
+    assert set(counts) - set(jspans) == {
+        "refresh", "expand.discover", "expand.commit", "filter.pre",
+        "filter.post"}
+    assert counts["refresh"] == 1
+    assert counts["expand.discover"] == counts["expand"] \
+        >= counts["expand.commit"] >= 1
+    assert counts["filter.pre"] == counts["filter.post"] == counts["filter"]
+    assert set(p["phases"]) == {"detect", "seed", "refresh", "expand",
+                                "filter"}
     for name in ("run_filters_pre", "count_neighbor_pairs",
                  "run_filters_post"):
         assert calls[name] == jspans["filter"] == 1, name
@@ -298,7 +310,8 @@ def test_run_full_writes_one_line_to_out_only(run_full_main):
     assert m["rc"] == (0 if r["bars"]["ok"] else 1)
     assert not r["bars"]["patches"]          # far below 80,000 here
     assert r["card"] == "cpu" and r["launches"] == {}
-    assert set(r["phase_seconds"]) == {"detect", "seed", "expand", "filter"}
+    assert set(r["phase_seconds"]) == {"detect", "seed", "refresh", "expand",
+                                       "filter"}
     assert r["median"] < 0.4 and r["patches"] > 0
     assert os.listdir(tmp) == [] and os.listdir(out.parent) == \
         ["run_full.json"]

@@ -1,7 +1,8 @@
 """The port's Tracer (utils/trace) and the drivers' profiler summary
 (scripts/profiling).
 
-The first two cases are tests/test_trace.py's on the port's Tracer. The
+The first two cases are tests/test_trace.py's on the port's Tracer, which
+takes no profile of its own: a caller's profiler finds its spans. The
 profiler capture runs on the CPU here (no device ops); the summary's
 arithmetic (merged overlaps, busy shares overall and per span) is
 checked exactly on hand-built event lists.
@@ -21,16 +22,15 @@ from cmvs_pmvs_tpu_torch.utils.trace import Tracer  # noqa: E402
 
 def test_spans_and_counters(tmp_path):
     tr = Tracer()
-    with tr.trace():
-        with tr.span("seed"):
-            time.sleep(0.01)
-        for _ in range(2):
-            with tr.span("expand"):
-                with tr.span("refine"):
-                    pass
-        tr.add_counter("seed", "patches", 5)
-        tr.add_counter("expand", "accepted", 3)
-        tr.add_counter("expand", "accepted", 4)
+    with tr.span("seed"):
+        time.sleep(0.01)
+    for _ in range(2):
+        with tr.span("expand"):
+            with tr.span("refine"):
+                pass
+    tr.add_counter("seed", "patches", 5)
+    tr.add_counter("expand", "accepted", 3)
+    tr.add_counter("expand", "accepted", 4)
     rep = tr.report()
     assert rep["seed"]["seconds"] >= 0.01
     assert rep["seed"]["patches"] == 5
@@ -47,22 +47,76 @@ def test_disabled_tracer_is_noop():
     tr = Tracer(enabled=False)
     with tr.span("x"):
         pass
-    assert tr.report() == {}
+    tr.add_counter("x", "n", 1)
+    assert tr.report() == {} and tr.seconds() == 0.0
 
 
-def test_profile_dir_writes_a_trace_with_the_spans(tmp_path):
-    tr = Tracer(profile_dir=str(tmp_path / "prof"))
+def test_spans_time_with_perf_counter(monkeypatch):
+    """Spans read time.perf_counter (never time.time); `seconds()` sums
+    the top-level spans, a parent's seconds holding its children's."""
+    import cmvs_pmvs_tpu_torch.utils.trace as T
+    ticks = iter([10.0, 10.5, 11.25, 13.0, 20.0, 20.125])
+
+    def wall():
+        raise AssertionError("a span read time.time")
+    monkeypatch.setattr(T, "time", type("Clock", (), {
+        "perf_counter": staticmethod(lambda: next(ticks)),
+        "time": staticmethod(wall)}))
+    tr = Tracer()
+    with tr.span("filter"):
+        with tr.span("pre"):
+            pass
+    with tr.span("write"):
+        pass
+    rep = tr.report()
+    assert rep["filter"]["seconds"] == 3.0
+    assert rep["filter.pre"]["seconds"] == 0.75
+    assert rep["write"]["seconds"] == 0.125
+    assert tr.seconds() == 3.125
+
+
+def test_children_take_no_more_than_their_parent():
+    tr = Tracer()
+    for _ in range(3):
+        with tr.span("expand", block=True):
+            with tr.span("discover"):
+                time.sleep(0.002)
+            time.sleep(0.001)
+            with tr.span("commit"):
+                time.sleep(0.002)
+    rep = tr.report()
+    kids = [rep["expand.discover"]["seconds"], rep["expand.commit"]["seconds"]]
+    assert min(kids) >= 0.006 and all(r["count"] == 3 for r in rep.values())
+    assert sum(kids) <= rep["expand"]["seconds"]
+    assert tr.seconds() == tr.spans["expand"].seconds
+
+
+def test_a_profiler_from_outside_finds_every_span():
+    """The caller's torch.profiler (on the CPU here) holds each span as a
+    range under its dotted name, the blocking ones included, each inside
+    its parent."""
+    tr = Tracer()
     x = torch.randn(64, 64)
-    with tr.trace():
-        with tr.span("seed", block=True):
-            x = x @ x
-        with tr.span("expand"):
-            with tr.span("refine"):
+    with torch.profiler.profile(activities=P.activities()[:1]) as prof:
+        with tr.span("load", block=True):
+            with tr.span("images"):
+                x = x @ x
+        with tr.span("expand", block=True):
+            with tr.span("discover"):
                 x = x + 1.0
-    with open(tmp_path / "prof" / "trace.json") as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"seed", "expand", "expand.refine", "aten::mm"} <= names
-    assert tr.report()["expand.refine"]["count"] == 1
+            with tr.span("commit"):
+                x = x * 2.0
+        with tr.span("write"):
+            with tr.span("ply"):
+                x = x - 1.0
+    ranges = {e.name: e for e in P.events(prof) if e.kind == P.SPAN}
+    assert set(tr.report()) == set(ranges) == {
+        "load", "load.images", "expand", "expand.discover",
+        "expand.commit", "write", "write.ply"}
+    for name, e in ranges.items():
+        if "." in name:
+            parent = ranges[name.rsplit(".", 1)[0]]
+            assert parent.start <= e.start and e.end <= parent.end, name
 
 
 def _events():
