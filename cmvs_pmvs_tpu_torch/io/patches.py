@@ -12,10 +12,8 @@ source/pmvs/patchOrganizerS.cpp:98-131 file level):
 
 The port's own copy of cmvs_pmvs_tpu/io/patches.py (the port imports
 nothing of the JAX package). The writers take the cloud as arrays and
-format whole rows with one `%` template instead of per-value f-strings
-on one record object per patch; the bytes are the same as the JAX
-package's Python writers (`%.17g` and `f"{x:.17g}"` format a float
-alike).
+hand them to the host C++ writers (`io/writers`, `csrc/writers.cpp`);
+the bytes are the same as the JAX package's Python writers.
 """
 from __future__ import annotations
 
@@ -23,9 +21,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-_PATCH_ROW = ("PATCHS\n" + "%.17g %.17g %.17g %.17g\n" * 2
-              + "%.17g %.17g %.17g\n")
-_PSET_ROW = "%.9g %.9g %.9g %.9g %.9g %.9g\n"
+from . import writers
 
 
 @dataclass
@@ -39,10 +35,6 @@ class PatchRecord:
     vimages: list[int] = field(default_factory=list)
 
 
-def _ids(ids) -> str:
-    return f"{len(ids)}\n" + " ".join(map(str, ids)) + " \n"
-
-
 def write_patch_arrays(path: str, coord, normal, ncc, dscale, ascale,
                        images, vimages) -> None:
     """The .patch file of a cloud held as arrays: coord/normal [P, 4],
@@ -53,16 +45,8 @@ def write_patch_arrays(path: str, coord, normal, ncc, dscale, ascale,
         [np.asarray(coord, np.float64).reshape(-1, 4),
          np.asarray(normal, np.float64).reshape(-1, 4),
          np.stack([np.asarray(v, np.float64).reshape(-1)
-                   for v in (ncc, dscale, ascale)], 1)], 1).tolist()
-
-    def rows(ids):
-        return [[i for i in r if i >= 0] for r in np.asarray(ids).tolist()]
-
-    with open(path, "w") as f:
-        f.write(f"PATCHES\n{len(heads)}\n")
-        f.write("".join(_PATCH_ROW % tuple(h) + _ids(im) + _ids(vi) + "\n"
-                        for h, im, vi in zip(heads, rows(images),
-                                             rows(vimages))))
+                   for v in (ncc, dscale, ascale)], 1)], 1)
+    writers.write_patch(path, heads, images, vimages)
 
 
 def read_patch_file(path: str) -> list[PatchRecord]:
@@ -91,11 +75,9 @@ def read_patch_file(path: str) -> list[PatchRecord]:
 
 def write_pset(path: str, coords: np.ndarray, normals: np.ndarray) -> None:
     """x y z nx ny nz per line (reference patchOrganizerS.cpp:118-131)."""
-    rows = np.concatenate([np.asarray(coords, np.float64).reshape(-1, 3),
-                           np.asarray(normals, np.float64).reshape(-1, 3)],
-                          1).tolist()
-    with open(path, "w") as f:
-        f.write("".join(_PSET_ROW % tuple(r) for r in rows))
+    writers.write_pset(path, np.concatenate(
+        [np.asarray(coords, np.float64).reshape(-1, 3),
+         np.asarray(normals, np.float64).reshape(-1, 3)], 1))
 
 
 def read_pset(path: str) -> tuple[np.ndarray, np.ndarray]:

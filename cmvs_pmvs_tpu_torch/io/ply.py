@@ -4,12 +4,15 @@ Schema matches reference source/pmvs/patchOrganizerS.cpp:687-779:
 x y z nx ny nz diffuse_{red,green,blue} quality(=ncc).
 
 The port's own copy of cmvs_pmvs_tpu/io/ply.py (the port imports nothing
-of the JAX package). The writer formats whole rows with one `%`
-template; the bytes are the same as the JAX package's Python writer.
+of the JAX package). The writer prepares the arrays and hands them to the
+host C++ writers (`io/writers`, `csrc/writers.cpp`); the bytes are the
+same as the JAX package's Python writer.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from . import writers
 
 _HEADER = """ply
 format ascii 1.0
@@ -26,7 +29,6 @@ property uchar diffuse_blue
 property float quality
 end_header
 """
-_ROW = "%.9g %.9g %.9g %.9g %.9g %.9g %d %d %d %.9g\n"
 
 
 def write_patch_ply(path: str, coords: np.ndarray, normals: np.ndarray,
@@ -42,13 +44,10 @@ def write_patch_ply(path: str, coords: np.ndarray, normals: np.ndarray,
                          255).astype(np.int64).reshape(-1, 3)
     if quality is None:
         quality = np.zeros(n)
-    rows = zip(coords.astype(np.float64).tolist(),
-               normals.astype(np.float64).tolist(), colors.tolist(),
-               np.asarray(quality, np.float64).reshape(-1).tolist())
-    with open(path, "w") as f:
-        f.write(_HEADER.format(n=n))
-        f.write("".join(_ROW % (*c, *nn, *rgb, q)
-                        for c, nn, rgb, q in rows))
+    writers.write_ply(path, _HEADER.format(n=n),
+                      np.concatenate([coords.astype(np.float64),
+                                      normals.astype(np.float64)], 1),
+                      colors, np.asarray(quality, np.float64).reshape(-1))
 
 
 def read_ply_xyz(path: str) -> np.ndarray:

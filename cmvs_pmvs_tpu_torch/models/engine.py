@@ -580,7 +580,7 @@ class PMVSEngine:
     def write(self, prefix: str, ply=True, patch=True, pset=True):
         """The alive patches to <prefix>.ply, .pset and .patch, in the
         tracer's span `write` (children `fetch`, `colors`, `ply`, `pset`,
-        `patch`; counter `patches`)."""
+        `patch`; counters `patches` and `bytes`, the files' sizes)."""
         cloud, tr = self.cloud, self.tracer
         with tr.span("write"):
             with tr.span("fetch"):
@@ -610,6 +610,9 @@ class PMVSEngine:
                                        on_disk(host["images"]),
                                        on_disk(host["vimages"]))
         tr.add_counter("write", "patches", len(coord))
+        tr.add_counter("write", "bytes", sum(
+            os.path.getsize(prefix + ext) for ext, on in
+            ((".ply", ply), (".pset", pset), (".patch", patch)) if on))
 
     def _patch_colors(self, idx) -> np.ndarray:
         """Mean projected colour over a patch's images

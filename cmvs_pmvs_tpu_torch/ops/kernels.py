@@ -3,15 +3,14 @@
 The sources under `cmvs_pmvs_tpu_torch/csrc/` are compiled at first use
 with nvcc for sm_90a - one nvcc process per source, all started
 together, then one link - into one shared library with a plain C
-interface (`build/torch_kernels/` at the repository root, named by a
-hash of the sources so an edited kernel rebuilds), and loaded with
-ctypes. Nothing here runs at import time: a CPU-only host imports the
-package without nvcc.
+interface (`build/torch_kernels/`, named by a hash of the sources so an
+edited kernel rebuilds; `utils/native`), and loaded with ctypes. Nothing
+here runs at import time: a CPU-only host imports the package without
+nvcc.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -21,8 +20,10 @@ from pathlib import Path
 
 import torch
 
+from ..utils import native
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+BUILD_DIR = native.BUILD_ROOT / "torch_kernels"
 SOURCES = ("fan2.cu", "fan.cu", "incc.cu", "windows.cu", "ablate.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -Xptxas -v: ptxas reports each kernel's registers and spills
@@ -69,11 +70,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256()
-    for name in SOURCES + ("common.cuh",):
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libcmvs_kernels_{h.hexdigest()[:16]}.so"
+    return native.library_path(
+        BUILD_DIR, "libcmvs_kernels",
+        [CSRC / name for name in SOURCES + ("common.cuh",)], NVCC_FLAGS)
 
 
 def build() -> Path:
@@ -87,10 +86,8 @@ def build() -> Path:
         build_seconds = 0.0
         build_report = report.read_text() if report.exists() else ""
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{path.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
-    tmp = BUILD_DIR / f"{tag}.tmp"
+    tmp = native.staging(path)
+    objs = [tmp.with_name(f"{tmp.stem}.{Path(s).stem}.o") for s in SOURCES]
     nvcc = _nvcc()
     t0 = time.time()
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -122,12 +119,7 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _lib = handle
+        _lib = native.bind(build(), _SIGNATURES)
     return _lib
 
 

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import os
 import subprocess
 
@@ -29,6 +28,7 @@ import torch
 from ..device import resolve_device
 from ..ops import kernels
 from ..ops.ablate import FAN_ABL_MODES, MOMENTS_ABL_MODES, moments_abl_lead
+from ..utils import native
 from . import ablate_common as C
 from . import ablate_fan25 as D7
 from .ablate_fan import FAN, make_inputs
@@ -50,14 +50,12 @@ def build() -> ctypes.CDLL:
     """The library of csrc/ablate_occupancy.cu (with ablate.cu and
     common.cuh, under the kernel library's nvcc flags), compiled into
     build/torch_kernels/ unless these sources' build is there, loaded."""
-    h = hashlib.sha256()
-    for name in (SOURCE, "ablate.cu", "common.cuh"):
-        h.update((kernels.CSRC / name).read_bytes())
-    h.update(" ".join(kernels.NVCC_FLAGS).encode())
-    path = kernels.BUILD_DIR / f"libcmvs_occupancy_{h.hexdigest()[:16]}.so"
+    path = native.library_path(
+        kernels.BUILD_DIR, "libcmvs_occupancy",
+        [kernels.CSRC / name for name in (SOURCE, "ablate.cu", "common.cuh")],
+        kernels.NVCC_FLAGS)
     if not path.exists():
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        tmp = native.staging(path)
         proc = subprocess.run(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(tmp),
              str(kernels.CSRC / SOURCE)],
@@ -66,12 +64,7 @@ def build() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}")
         os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
-    for name, args in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    return lib
+    return native.bind(path, SIGNATURES)
 
 
 def sweep(lib, i5: dict, i7: dict, log=print) -> dict:

@@ -5,6 +5,10 @@ options."""
 import dataclasses
 import filecmp
 import os
+import subprocess
+import sys
+import tomllib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from cmvs_pmvs_tpu_torch.io import cameras as TCAM  # noqa: E402
 from cmvs_pmvs_tpu_torch.io import images as TIMG  # noqa: E402
 from cmvs_pmvs_tpu_torch.io import patches as TPAT  # noqa: E402
 from cmvs_pmvs_tpu_torch.io import ply as TPLY  # noqa: E402
+from cmvs_pmvs_tpu_torch.io import writers as TW  # noqa: E402
 from cmvs_pmvs_tpu_torch.utils import options as TOPT  # noqa: E402
 from cmvs_pmvs_tpu_torch.utils import synthetic as TSYN  # noqa
 
@@ -77,9 +82,11 @@ def _cloud(dtype):
             rng.uniform(0, 1, n).astype(dtype), ids, ids[:, ::-1].copy())
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_cloud_writers_byte_identical(tmp_path, dtype):
-    coord, normal, ncc, dscale, ascale, images, vimages = _cloud(dtype)
+def _same_cloud_files(tmp_path, coord, normal, ncc, dscale, ascale, images,
+                      vimages) -> str:
+    """Write the cloud's .patch, .pset and .ply (grey and coloured) through
+    the JAX package's Python writers and the port's, and require the same
+    bytes; returns the port's files' prefix."""
     recs = [JPAT.PatchRecord(
         coord=coord[k], normal=normal[k], ncc=float(ncc[k]),
         dscale=float(dscale[k]), ascale=float(ascale[k]),
@@ -102,6 +109,14 @@ def test_cloud_writers_byte_identical(tmp_path, dtype):
         TPLY.write_patch_ply(t + ".ply", coord[:, :3], normal[:, :3],
                              colors=col, quality=ncc)
         _same_files(j + ".ply", t + ".ply")
+    return t
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cloud_writers_byte_identical(tmp_path, dtype):
+    coord, normal, ncc, dscale, ascale, images, vimages = _cloud(dtype)
+    t = _same_cloud_files(tmp_path, coord, normal, ncc, dscale, ascale,
+                          images, vimages)
     back = TPAT.read_patch_file(t + ".patch")
     assert len(back) == len(coord) and back[0].images == []
     np.testing.assert_array_equal(TPLY.read_ply_xyz(t + ".ply"),
@@ -115,6 +130,100 @@ def test_empty_cloud_writers(tmp_path):
                             z[:, 0], z[:, 0], ids, ids)
     JPAT.write_patch_file(str(tmp_path / "j.patch"), [])
     _same_files(tmp_path / "e.patch", tmp_path / "j.patch")
+
+
+def _edge_cloud(case, dtype):
+    """Six patches whose floats or ids hit one edge case of the text
+    formats: every third value special, so each column gets some; or,
+    for "threads", enough patches that the writers split the rows over
+    two threads."""
+    rng = np.random.default_rng(5)
+    n = {"empty": 0, "threads": 2 * 8192 + 3}.get(case, 6)
+    k = 0 if case == "width0" else 4
+    heads = rng.normal(size=(n, 11))
+    tiny = np.finfo(dtype).smallest_subnormal
+    special = {
+        "nan": [np.nan, np.copysign(np.nan, -1.0), 1.5],
+        "inf_zero": [np.inf, -np.inf, 0.0, -0.0],
+        "subnormal": [tiny, -tiny, 2 * tiny],
+        # where %g switches to the exponent form: 1e-5 and 1e16-1e17 for
+        # 17 digits, 1e9 for 9
+        "g_switch": [1e-5, 9.999999999999999e-06, 1.0000000000000001e-05,
+                     9.99995e-5, 1e-4, 1e16, 9999999999999998.0, 1e17,
+                     99999999999999999.0, 999999999.5, 1e9, 99999999.95,
+                     123456789.0, 1.2345678912345678e-5],
+    }.get(case)
+    if special is not None:
+        heads.flat[::3] = np.resize(special, heads.flat[::3].shape)
+    heads = heads.astype(dtype)
+    ids = rng.integers(0, 40, (n, k))
+    if case == "ids_negative":
+        ids[2] = -1
+        ids[4, ::2] = -1
+    if case == "big_ids":
+        ids = ids * 1_234_567 + 9_999
+    return heads, ids, ids[:, ::-1].copy()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["nan", "inf_zero", "subnormal", "g_switch",
+                                  "ids_negative", "width0", "big_ids",
+                                  "empty", "threads"])
+def test_cloud_writers_edge_cases(tmp_path, case, dtype):
+    """The port's C++ writers against the JAX package's Python writers on
+    NaN of either sign, infinities, signed zeros, subnormals, the values
+    where %g changes form, rows without ids, no id columns, large ids, an
+    empty cloud and rows split over threads: byte-identical .patch, .pset
+    and .ply files."""
+    heads, images, vimages = _edge_cloud(case, dtype)
+    if case == "nan":
+        assert np.signbit(heads[np.isnan(heads)]).any()
+    _same_cloud_files(tmp_path, heads[:, :4], heads[:, 4:8], heads[:, 8],
+                      heads[:, 9], heads[:, 10], images, vimages)
+
+
+def test_writer_library_builds_once(tmp_path, monkeypatch):
+    """Two processes build the writer library into one empty directory at
+    once: both name the same hashed file and leave no pid-tagged
+    temporary file. A later build finds that file and leaves it as it
+    is."""
+    code = ("import sys\n"
+            "from pathlib import Path\n"
+            "from cmvs_pmvs_tpu_torch.io import writers as W\n"
+            "W.BUILD_DIR = Path(sys.argv[1])\n"
+            "print(W.build())\n"
+            "W.lib()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [e for _, e in outs]
+    libs = {o.strip() for o, _ in outs}
+    assert len(libs) == 1
+    lib = Path(libs.pop())
+    assert sorted(os.listdir(tmp_path)) == [lib.name]
+    before = lib.stat()
+    monkeypatch.setattr(TW, "BUILD_DIR", tmp_path)
+    assert TW.build() == lib
+    after = lib.stat()
+    assert (after.st_ino, after.st_mtime_ns) == (before.st_ino,
+                                                 before.st_mtime_ns)
+
+
+def test_package_data_ships_every_csrc_source():
+    """An installed package carries every file under csrc/: the kernels'
+    and the writers' sources are compiled at first use."""
+    root = Path(__file__).resolve().parents[1]
+    pkg = root / "cmvs_pmvs_tpu_torch"
+    conf = tomllib.loads((root / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"]["cmvs_pmvs_tpu_torch"]
+    shipped = {f for g in globs for f in pkg.glob(g)}
+    sources = {f for f in (pkg / "csrc").iterdir() if f.is_file()}
+    assert pkg / "csrc" / "writers.cpp" in sources
+    assert sources <= shipped, sorted(map(str, sources - shipped))
 
 
 OPTION = """# comment line

@@ -97,9 +97,10 @@ SPANS = {"load": ("images", "pyramid"), "detect": (), "seed": (),
 def test_spans_cover_the_job(recon):
     """reconstruct's spans: load, the engine's phases and write at the
     top, each step inside them a child taking no more than its parent;
-    the refine rows counted in expand, the written patches in write."""
+    the refine rows counted in expand, the written patches and the
+    files' bytes in write."""
     _, out = recon
-    _, eng, cloud = out["torch"]
+    root, eng, cloud = out["torch"]
     rep, sec = eng.tracer.report(), {
         n: sp.seconds for n, sp in eng.tracer.spans.items()}
     assert set(rep) == set(SPANS) | {f"{top}.{kid}" for top, kids in
@@ -110,4 +111,7 @@ def test_spans_cover_the_job(recon):
     assert 0 < ex["batch_used"] <= ex["batch_rows"]
     assert ex["batch_used"] >= ex["accepted"]
     assert rep["write"]["patches"] == len(cloud["coord"])
+    base = os.path.join(root, "models", "option.txt")
+    assert rep["write"]["bytes"] == sum(
+        os.path.getsize(base + ext) for ext in (".ply", ".pset", ".patch"))
     assert rep["refresh"]["count"] == 1
