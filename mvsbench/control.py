@@ -4,8 +4,9 @@
         [--fault unchanged --fault-seeds 21 22 23]
 
 For each seed it renders the cell's first scene, reconstructs it with
-`reconstruct` as the window does (on the process's graph cache, so only
-the first seed captures), and prints one JSON line with the program's
+the cell's per-job callable as the window does (one card, or every rank
+of the engine mesh; on the process's graph cache, so only the first
+seed captures), and prints one JSON line with the program's
 numbers (check.numbers: the lower readings) and the control's
 (check.control: the reference computed in bfloat16, the nearest
 precision below the float32 the program computes in, put in the
@@ -33,24 +34,28 @@ def readings(root: str, workload: str, seeds, device="cuda",
              dtype=torch.bfloat16, fault=None):
     """Yield (seed, program's numbers, control's numbers or None) for
     each seed; with `fault` (a faults.py callable) the program runs
-    broken by it and no control is read."""
+    broken by it and no control is read. Each job is the cell's per-job
+    callable (run.runner): on a cell of several cards the ranks live for
+    the whole call and the fault is planted in each of them too."""
     from cmvs_pmvs_tpu_torch.models import engine as E
     device = torch.device(device)
     cell = manifest.cell(root, workload)
     level = cell.traffic["level"]
     samples = cell.traffic["check"]
     undo = fault() if fault is not None else None
+    store = tempfile.mkdtemp(prefix="mvsbench-control-")
+    ranks = None
     try:
+        job, ranks = run.runner(cell, E, device, run.quiet,
+                                cell.traffic.get("reconstruct", {}), store,
+                                fault)
         for seed in seeds:
             workdir = tempfile.mkdtemp(prefix="mvsbench-control-")
             try:
                 label, sc, tr = run.render_scenes(cell, seed, device,
                                                   workdir)[0]
-                eng, seconds = run.one_reconstruction(
-                    E, tr, device, run.quiet,
-                    **cell.traffic.get("reconstruct", {}))
-                out = check.outputs(eng)
-                del eng
+                rec, seconds = job(label, tr)
+                out = check.outputs(rec.pop("engine"))
                 files = check.read_files(tr)
                 prog = check.numbers(sc, cell.config, level, out, files,
                                      seed, samples, device)
@@ -61,6 +66,9 @@ def readings(root: str, workload: str, seeds, device="cuda",
             finally:
                 shutil.rmtree(workdir, ignore_errors=True)
     finally:
+        if ranks is not None:
+            ranks.stop()
+        shutil.rmtree(store, ignore_errors=True)
         if undo is not None:
             undo()
 

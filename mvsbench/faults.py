@@ -67,5 +67,64 @@ def pixel():
     return lambda: setattr(E, "load_scene", orig)
 
 
+def own_rows():
+    """The engine mesh's row all-gather (`engine_shard.gather_rows`,
+    after seeding, in discovery and in every filter stage) leaves the
+    exchange out: each rank's whole result holds its own rows in every
+    rank's place. The collectives still run, so the ranks stay in step."""
+    import torch
+    from cmvs_pmvs_tpu_torch.parallel import engine_shard as S
+    orig = S.gather_rows
+
+    def gather(mesh, tensors):
+        whole = orig(mesh, tensors)
+        own = tensors[0].shape[0]
+        if own == 0:
+            return [torch.zeros_like(w) for w in whole]
+        return [torch.cat([t] * -(-w.shape[0] // own))[:w.shape[0]]
+                for t, w in zip(tensors, whole)]
+
+    S.gather_rows = gather
+    return lambda: setattr(S, "gather_rows", orig)
+
+
+def rank_dies():
+    """On an engine mesh every rank but rank 0 dies (its process exits)
+    as its expansion starts: the run has to end with a failed job."""
+    import os
+
+    import torch.distributed as dist
+    from cmvs_pmvs_tpu_torch.models import engine as E
+    orig = E.PMVSEngine._expand_round
+
+    def die(self, *args, **kwargs):
+        if dist.get_rank() != 0:
+            os._exit(1)
+        return orig(self, *args, **kwargs)
+
+    E.PMVSEngine._expand_round = die
+    return lambda: setattr(E.PMVSEngine, "_expand_round", orig)
+
+
+def rank_hangs():
+    """On an engine mesh every rank but rank 0 stops (sleeps for ten
+    minutes) as its expansion starts, while rank 0 waits for it in a
+    collective: the run has to end with a failed job, not hang."""
+    import time
+
+    import torch.distributed as dist
+    from cmvs_pmvs_tpu_torch.models import engine as E
+    orig = E.PMVSEngine._expand_round
+
+    def stop(self, *args, **kwargs):
+        if dist.get_rank() != 0:
+            time.sleep(600)
+        return orig(self, *args, **kwargs)
+
+    E.PMVSEngine._expand_round = stop
+    return lambda: setattr(E.PMVSEngine, "_expand_round", orig)
+
+
 FAULTS = {"unchanged": unchanged, "half_written": half_written,
-          "moved": moved, "pixel": pixel}
+          "moved": moved, "pixel": pixel, "own_rows": own_rows,
+          "rank_dies": rank_dies, "rank_hangs": rank_hangs}

@@ -1,4 +1,4 @@
-"""peak_gb: the card's peak of reserved memory over the window
+"""peak_gb: the fullest card's peak of reserved memory over the window
 (torch.cuda.max_memory_reserved; the graph pools are most of it)."""
 UNIT = "GB"
 LAYER = "device (the graph pools)"

@@ -1,5 +1,5 @@
 """recon_s: the window's wall time over the reconstructions completed
-in it, on one card (host clock)."""
+in it, on the cell's cards (host clock)."""
 UNIT, LAYER, MOVES = "s", None, None
 
 

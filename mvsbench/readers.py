@@ -10,14 +10,22 @@ then leaves the metric out of the result line). The context holds:
                                the window: scene ("A"/"B"), seconds,
                                engine_spans (the engine Tracer's
                                report), load and write (seconds, traced
-                               runs only)
-  peak_reserved                the window's peak of reserved bytes
+                               runs only); on a mesh also rank_ends
+                               (each rank's time.monotonic() at its
+                               return) and peak (the other ranks' peak
+                               of reserved bytes in the job)
+  peak_reserved                the window's peak of reserved bytes, on
+                               the fullest card
+  rank_busy_us                 a traced mesh's other ranks' device-busy
+                               microseconds over their window jobs
   events                       profiler events of the window (traced
-                               runs; profiling.Event)
+                               runs; rank 0's on a mesh; profiling.Event)
   kernel_work                  roofline.Counter by kernel (traced runs)
 """
 from __future__ import annotations
 
+import importlib.util
+import os
 import re
 
 from . import profiling
@@ -76,3 +84,17 @@ def roofline_pct(ctx: dict, kernel: str) -> float | None:
     if us <= 0.0:
         return None
     return 100.0 * work.bound_ms * 1e3 / us
+
+
+def twin(name: str, moves: str | None):
+    """(UNIT, LAYER, MOVES, read) of the reader `metrics/<name>.py` for a
+    metric that reads the same quantity on cells reporting another
+    end-to-end metric, `moves` (a per-layer metric moves one end-to-end
+    metric, so a quantity read where cells differ in it is split)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "metrics", name + ".py")
+    spec = importlib.util.spec_from_file_location(
+        "mvsbench_metric_" + re.sub(r"\W", "_", name), path)
+    base = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base)
+    return base.UNIT, base.LAYER, moves, base.read

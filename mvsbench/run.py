@@ -7,14 +7,24 @@ from the root of a checkout. Set-up renders the cell's two scenes on the
 card from the seed (scene.py), writes them as PMVS trees under a
 temporary directory (tree.py) and reconstructs each once, cold, as a
 fresh `pmvs3` process does (the CUDA graphs are captured then). The
-window then runs whole `cmvs_pmvs_tpu_torch.models.engine.reconstruct`
-calls back to back, alternating the scenes, each ending in a device
-synchronize, until the call running at `--seconds` completes. After the
-window the last reconstruction of each scene is checked against the
+window then runs whole jobs back to back, alternating the scenes, until
+the job running at `--seconds` completes (with the traffic's
+`whole_pairs`, until the first A/B pair that completes at or after it).
+After the window the last job of each scene is checked against the
 plain reference (check.py, reference.py).
 
-With `--trace 1` the window runs under torch.profiler, `load_scene` and
-`PMVSEngine.write` are timed from here, and after the window one more
+A job is the cell's per-job callable, `job(label, tree) -> (record,
+seconds)`, the one place where a launch shape plugs in: on one card
+`one_reconstruction`, a whole
+`cmvs_pmvs_tpu_torch.models.engine.reconstruct` call ending in a device
+synchronize; on a cell of several cards `mesh.Ranks.job`, the same call
+on every rank of the port's engine mesh, this process rank 0. Set-up,
+the window, the outputs, the check and the result line are the same
+for both.
+
+With `--trace 1` the window runs under torch.profiler (on a mesh every
+rank profiles its window jobs), `load_scene` and `PMVSEngine.write` are
+timed from here, and on one card, after the window, one more
 reconstruction runs op by op (`graphs=False`) with the K1 and K2
 wrappers' launch capture hooked to count each launch's work
 (roofline.Counter). Every metric is read by its own reader
@@ -156,17 +166,56 @@ def one_reconstruction(engine_mod, root: str, device, log, **kwargs):
     return eng, time.perf_counter() - t
 
 
+def one_job(engine_mod, device, log, args: dict):
+    """The one-card cells' per-job callable: `one_reconstruction` of a
+    scene's tree; the record holds the engine."""
+    def job(label: str, root: str):
+        eng, seconds = one_reconstruction(engine_mod, root, device, log,
+                                          **args)
+        return {"engine": eng}, seconds
+    return job
+
+
+def runner(cell, engine_mod, device, log, args: dict, workdir: str,
+           faults=None, lost=None):
+    """(the cell's per-job callable, its mesh.Ranks or None): one card,
+    or the harness as rank 0 of `cell.chips` ranks (`faults` planted in
+    each spawned rank, `lost` as mesh.Ranks takes it)."""
+    if cell.chips == 1:
+        return one_job(engine_mod, device, log, args), None
+    from mvsbench import mesh
+    ranks = mesh.Ranks(cell.chips, device, workdir, args, fault=faults,
+                       lost=lost)
+    return ranks.job, ranks
+
+
+def lost_result(cell, device):
+    """`lost` for mesh.Ranks: print the result line of a run whose ranks
+    fell out of step inside a job (`correct` false, no metrics)."""
+    def report(reason: str, attempted: int, failed: int):
+        info = device_info(device, cell.chips)
+        info["memory_peak_bytes"] = torch.cuda.max_memory_reserved(device) \
+            if device.type == "cuda" else 0
+        print(json.dumps({"correct": False, "attempted": attempted,
+                          "failed": failed, "metrics": {}, "device": info,
+                          "diagnostics": {"lost": reason},
+                          "compared": {}}), flush=True)
+    return report
+
+
 def run_cell(root: str, workload: str, seed: int, seconds: float,
              trace: bool, device="cuda", t0: float | None = None,
              faults=None) -> dict:
     """One run of the cell `workload`: set-up, the window, the check;
     returns the result object. `faults`, for the benchmark's own tests,
     is a callable run once set-up has loaded the program (it may break
-    the program underneath, and returns an undo callable)."""
+    the program underneath, and returns an undo callable); on a mesh it
+    also runs in every spawned rank."""
     t0 = T0 if t0 is None else t0
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", 0)
+    cuda = device.type == "cuda"
     bench = manifest.load(root)
     cell = manifest.cell(root, workload, bench)
     torch.set_num_threads(4)
@@ -176,22 +225,32 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
 
     undo = faults() if faults is not None else None
     args = cell.traffic.get("reconstruct", {})
+    pairs = bool(cell.traffic.get("whole_pairs"))
     workdir = tempfile.mkdtemp(prefix="mvsbench-")
     log = quiet
     ctx = {"cell": cell.name, "trace": trace}
+    ranks = None
     try:
         scenes = render_scenes(cell, seed, device, workdir)
-        cold = []
+        job, ranks = runner(cell, E, device, log, args, workdir, faults,
+                            lost_result(cell, device))
+        cold, setup_peak = {}, 0
         for label, _, tr in scenes:
-            eng, s = one_reconstruction(E, tr, device, log, **args)
-            cold.append(s)
-        eng = None
-        ctx["cold_recon_s"] = cold[0]
-        cache = G.shared(device) if device.type == "cuda" else None
+            try:
+                rec, cold[label] = job(label, tr)
+                setup_peak = max(setup_peak, rec.get("peak", 0))
+            except Exception as err:    # set-up failed: not correct
+                ctx["setup_failed"] = True
+                print(f"cold reconstruction {label} failed: {err!r}",
+                      file=sys.stderr)
+        rec = None
+        if "A" in cold:
+            ctx["cold_recon_s"] = cold["A"]
+        cache = G.shared(device) if cuda else None
         stats0 = cache.stats() if cache is not None else None
-        setup_peak = torch.cuda.max_memory_reserved(device) \
-            if device.type == "cuda" else 0
-        if device.type == "cuda":
+        setup_peak = max(setup_peak, torch.cuda.max_memory_reserved(device)
+                         if cuda else 0)
+        if cuda:
             torch.cuda.reset_peak_memory_stats(device)
 
         # ---- the window ----
@@ -200,41 +259,47 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) \
-            if trace and device.type == "cuda" else None
+            if trace and cuda else None
         layers = timed_layers(E, spans) if trace \
             else contextlib.nullcontext()
+        window = ranks.window(trace) if ranks is not None \
+            else contextlib.nullcontext()
         ctx["setup_s"] = time.time() - t0
-        with layers, (prof if prof is not None
-                      else contextlib.nullcontext()):
+        with layers, window, (prof if prof is not None
+                              else contextlib.nullcontext()):
             with torch.profiler.record_function("mvsbench.window"):
                 start = time.perf_counter()
                 i = 0
                 while True:
                     label, _, tr = scenes[i % 2]
                     before = dict(spans)
+                    i += 1
                     try:
                         with torch.profiler.record_function(
                                 "mvsbench.recon." + label):
-                            eng, s = one_reconstruction(E, tr, device,
-                                                        log, **args)
+                            rec, s = job(label, tr)
+                        eng = rec.pop("engine")
                         kept[label] = eng
                         recs.append({
                             "scene": label, "seconds": s,
                             "engine_spans": eng.tracer.report(),
                             **{k: spans.get(k, 0.0) - before.get(k, 0.0)
-                               for k in ("load", "write")}})
+                               for k in ("load", "write")}, **rec})
                     except Exception as err:   # a failed job: counted
                         failed += 1
-                        print(f"reconstruction {i} failed: {err!r}",
+                        print(f"reconstruction {i - 1} failed: {err!r}",
                               file=sys.stderr)
-                    i += 1
-                    if time.perf_counter() - start >= seconds:
+                        if getattr(err, "final", False):
+                            break
+                    if time.perf_counter() - start >= seconds and \
+                            not (pairs and i % 2):
                         break
                 end = time.perf_counter()
         ctx.update(window_s=end - start, attempted=i, failed=failed,
                    recons=recs)
-        ctx["peak_reserved"] = torch.cuda.max_memory_reserved(device) \
-            if device.type == "cuda" else 0
+        ctx["peak_reserved"] = max(
+            [torch.cuda.max_memory_reserved(device) if cuda else 0]
+            + [r.get("peak", 0) for r in recs])
         ctx["memory_peak_bytes"] = max(setup_peak, ctx["peak_reserved"])
         if cache is not None:
             st = cache.stats_since(stats0)
@@ -243,6 +308,9 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         if prof is not None:
             ctx["events"] = profiling.events(prof)
             del prof
+        if ranks is not None:
+            ctx["rank_busy_us"] = ranks.busy_us()
+            ranks.stop()
 
         # ---- the outputs, then the program's state freed ----
         marks = [("window", time.perf_counter())]
@@ -250,11 +318,11 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         files = {label: check.read_files(tr) for label, _, tr in scenes
                  if label in outs}
         kept.clear()
-        eng = None
+        eng = rec = None
         gc.collect()
         if cache is not None:
             cache.clear()
-        if trace and device.type == "cuda":
+        if trace and cuda and cell.chips == 1:
             ctx["kernel_work"] = count_work(E, kernels, scenes[0][2],
                                             device, log, args)
             gc.collect()
@@ -276,11 +344,14 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         ctx["phase_s"] = {name: round(t - marks[i][1], 3)
                           for i, (name, t) in enumerate(marks[1:])}
     finally:
+        if ranks is not None:
+            ranks.stop()
         shutil.rmtree(workdir, ignore_errors=True)
         if undo is not None:
             undo()
 
-    return assemble(root, cell, ctx, trace, device, 1, correct, compared)
+    return assemble(root, cell, ctx, trace, device, cell.chips, correct,
+                    compared)
 
 
 def assemble(root: str, cell, ctx: dict, trace: bool, device, count: int,
@@ -302,7 +373,10 @@ def assemble(root: str, cell, ctx: dict, trace: bool, device, count: int,
     span = readers.window(ctx)
     if trace and span is not None:
         lo, hi = span
+        # averaged over the cards: rank 0's busy time, the other ranks'
         busy = profiling.busy_us(ctx["events"], lo, hi)
+        others = ctx.get("rank_busy_us", [])
+        busy = (busy + sum(others)) / (1 + len(others))
         result["device"].update(busy_s=busy / 1e6, window_s=(hi - lo) / 1e6)
         result["breakdown"] = {
             "device_ops": profiling.top_ops(ctx["events"], lo, hi),

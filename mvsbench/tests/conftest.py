@@ -31,7 +31,7 @@ def add_tiny_cell(root: str, views: int = 5, width: int = 96,
                   height: int = 72, focal: float = 105.0):
     """A cell `tiny.l0` of the sparse ring's shapes cut to a few small
     views, added as a config, a traffic mix, a limits file and manifest
-    entries."""
+    entries (listed wherever `sparse-ring.l0` is)."""
     mv = os.path.join(root, "mvsbench")
     with open(os.path.join(mv, "configs", "temple-sparse-ring.json")) as f:
         conf = json.load(f)
@@ -58,7 +58,7 @@ def add_tiny_cell(root: str, views: int = 5, width: int = 96,
                                "traffic": "tiny", "chips": 1,
                                "why": "a test's"})
     for m in bench["end_to_end"] + bench["per_layer"]:
-        if "workloads" in m:
+        if "sparse-ring.l0" in m.get("workloads", ()):     # one card's
             m["workloads"].append(TINY)
     with open(path, "w") as f:
         json.dump(bench, f)

@@ -36,6 +36,14 @@ def test_sound_run_is_correct(tiny):
     assert res["attempted"] == 1 and res["failed"] == 0
     assert list(res["compared"])[-1] == "cover_miss"
     assert list(res)[-1] == "compared"
+    # the one-card result line keeps its keys through the shared loop
+    assert list(res) == ["correct", "attempted", "failed", "metrics",
+                         "device", "diagnostics", "compared"]
+    assert list(res["metrics"]) == ["recon_s", "setup_s"]
+    assert list(res["device"]) == ["platform", "kind", "count",
+                                   "memory_peak_bytes"]
+    assert list(res["diagnostics"]) == ["window_s", "cold_recon_s",
+                                        "phase_s", "patches"]
     assert res["metrics"]["recon_s"]["value"] > 0
     assert res["metrics"]["setup_s"]["value"] > 0
 
